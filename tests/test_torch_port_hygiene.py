@@ -42,14 +42,18 @@ def test_importing_every_module_loads_no_jax():
 
 
 def test_no_source_file_names_jax():
-    """Static check of the port, `chip_smoke.py` and the port's profiling
-    tool, including imports inside functions."""
+    """Static check of the port (its benchmark tools included),
+    `chip_smoke.py` and the port's profiling tool, including imports
+    inside functions."""
     paths = [os.path.join(ROOT, "chip_smoke.py"),
              os.path.join(ROOT, "tools", "profile_port_slice.py")]
     for dirpath, _, files in os.walk(PORT):
         paths += [os.path.join(dirpath, f) for f in files
                   if f.endswith(".py")]
     assert len(paths) > 20
+    for tool in ("bench_xcorr.py", "bench_memhead.py", "profile_engine.py",
+                 "timing.py"):
+        assert os.path.join(PORT, "tools", tool) in paths
     for path in paths:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -87,3 +91,35 @@ def test_groupdw_kernel_source_is_for_hopper():
     src = xcorr_kernel.SOURCE.read_text()
     assert "__global__" in src and 'extern "C"' in src
     assert "xcorr_groupdw_pallas" in src  # names the TPU kernel it replaces
+
+
+def test_depthwise_kernel_source_is_for_hopper():
+    """K2 and K3 are CUDA C++ built for sm_90a from the repo's source,
+    each entry point naming the TPU kernel it replaces."""
+    from usot_tpu_torch.ops import xcorr_kernel
+
+    src = xcorr_kernel.DEPTHWISE_SOURCE.read_text()
+    assert xcorr_kernel.DEPTHWISE_SOURCE in xcorr_kernel.SOURCES
+    assert "arch=compute_90a,code=sm_90a" in xcorr_kernel.NVCC_FLAGS
+    assert "__global__" in src and src.count('extern "C"') == 2
+    assert "usot_xcorr_depthwise_multi  <- xcorr_depthwise_multi_pallas" \
+        in src
+    assert "usot_xcorr_depthwise        <- xcorr_depthwise_pallas" in src
+
+
+def test_engines_raise_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without CUDA")
+    from usot_tpu_torch.models.usot import build_usot
+    from usot_tpu_torch.tracker.config import TrackerConfig
+    from usot_tpu_torch.tracker.engine import BatchScanEngine, ScanEngine
+
+    model = build_usot(width=4, channels=8)
+    p = TrackerConfig()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ScanEngine(model, p, 64, 64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BatchScanEngine(model, p, 64, 64, batch=2)
+    assert ScanEngine(model, p, 64, 64, device="cpu").device.type == "cpu"
+    engine = BatchScanEngine(model, p, 64, 64, batch=2, device="cpu")
+    assert engine._consts["window"].device.type == "cpu"

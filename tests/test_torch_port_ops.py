@@ -1,8 +1,9 @@
 """Port ops (`usot_tpu_torch.ops`) against their `usot_tpu` counterparts.
 
 Same numpy-seeded inputs through both packages on the CPU, f32 unless a
-test says otherwise. The fused GroupDW is held against the Pallas kernel
-run in interpret mode, at 1e-4 as `tests/test_ops.py` holds the kernel.
+test says otherwise. The fused GroupDW (K1) and the single-scale
+correlations (K2, K3) are held against their Pallas kernels run in
+interpret mode, at 1e-4 as `tests/test_ops.py` holds the kernels.
 """
 import jax
 import jax.numpy as jnp
@@ -10,14 +11,20 @@ import numpy as np
 import pytest
 import torch
 
-from usot_tpu.ops.pallas.xcorr_kernel import xcorr_groupdw_pallas
+from usot_tpu.ops.pallas.xcorr_kernel import (xcorr_depthwise_multi_pallas,
+                                              xcorr_depthwise_pallas,
+                                              xcorr_groupdw_pallas)
 from usot_tpu.ops.prroi import prroi_pool_same_batch as jax_prroi
 from usot_tpu.ops.xcorr import xcorr_depthwise as jax_xcorr_depthwise
 from usot_tpu.ops.xcorr import xcorr_groupdw as jax_xcorr_groupdw
 from usot_tpu_torch.ops import xcorr_kernel
 from usot_tpu_torch.ops.prroi import prroi_pool_same_batch
-from usot_tpu_torch.ops.xcorr import (xcorr_depthwise, xcorr_groupdw,
-                                      xcorr_groupdw_reference)
+from usot_tpu_torch.ops.xcorr import (xcorr_depthwise,
+                                      xcorr_depthwise_multi,
+                                      xcorr_depthwise_multi_reference,
+                                      xcorr_depthwise_pairwise,
+                                      xcorr_depthwise_pairwise_reference,
+                                      xcorr_groupdw, xcorr_groupdw_reference)
 
 # Several test workers share the host's cores; tiny shapes need few threads.
 torch.set_num_threads(2)
@@ -95,6 +102,90 @@ def test_xcorr_depthwise_matches_jax(xs, ks):
     ref = jax_xcorr_depthwise(jnp.asarray(x), jnp.asarray(k))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4,
                                rtol=0)
+
+
+SINGLE_SHAPES = [
+    # (B, Hx, Wx, C, Hk, Wk): tests/test_ops.py:225-227 at C <= 32, and a
+    # ragged one (odd C, odd Wo)
+    (2, 31, 31, 32, 5, 5),
+    (1, 27, 29, 16, 3, 5),
+    (2, 29, 27, 8, 5, 3),
+    (3, 12, 15, 5, 4, 3),
+]
+
+
+@pytest.mark.parametrize("shape", SINGLE_SHAPES)
+@pytest.mark.parametrize("m", [1, 3])
+def test_depthwise_multi_matches_pallas_interpret(shape, m):
+    """K2's plain version (the dispatch on CPU tensors) against
+    `xcorr_depthwise_multi_pallas`."""
+    b, hx, wx, c, hk, wk = shape
+    rng = np.random.default_rng(sum(shape) + m)
+    x = rng.normal(size=(b, hx, wx, c)).astype(np.float32)
+    k = rng.normal(size=(b, m, hk, wk, c)).astype(np.float32)
+    ref = xcorr_depthwise_multi_pallas(jnp.asarray(x), jnp.asarray(k),
+                                       interpret=True)
+    out = xcorr_depthwise_multi(torch.from_numpy(x), torch.from_numpy(k))
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("shape", SINGLE_SHAPES)
+def test_depthwise_pairwise_matches_pallas_interpret(shape):
+    """K3's plain version against `xcorr_depthwise_pallas`."""
+    b, hx, wx, c, hk, wk = shape
+    rng = np.random.default_rng(sum(shape))
+    x = rng.normal(size=(b, hx, wx, c)).astype(np.float32)
+    k = rng.normal(size=(b, hk, wk, c)).astype(np.float32)
+    ref = xcorr_depthwise_pallas(jnp.asarray(x), jnp.asarray(k),
+                                 interpret=True)
+    out = xcorr_depthwise_pairwise(torch.from_numpy(x), torch.from_numpy(k))
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4,
+                               rtol=0)
+    # the grouped-conv route computes the same function
+    np.testing.assert_allclose(
+        xcorr_depthwise(torch.from_numpy(x), torch.from_numpy(k)).numpy(),
+        out.numpy(), atol=1e-4, rtol=0)
+
+
+def test_depthwise_bf16_rounds_once():
+    """bf16 in, bf16 out, accumulated in f32: within 2^-7 of the largest
+    output of the exact sum of the same bf16 values."""
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.normal(size=(2, 11, 12, 16))
+                         .astype(np.float32)).to(torch.bfloat16)
+    k = torch.from_numpy(rng.normal(size=(2, 3, 5, 4, 16))
+                         .astype(np.float32)).to(torch.bfloat16)
+    exact = xcorr_depthwise_multi_reference(x.double(), k.double())
+    tol = 2.0 ** -7 * float(exact.abs().max())
+    multi = xcorr_depthwise_multi(x, k)
+    pair = xcorr_depthwise_pairwise(x, k[:, 1])
+    assert multi.dtype == pair.dtype == torch.bfloat16
+    np.testing.assert_allclose(multi.double().numpy(), exact.numpy(),
+                               atol=tol, rtol=0)
+    np.testing.assert_allclose(pair.double().numpy(), exact[:, 1].numpy(),
+                               atol=tol, rtol=0)
+
+
+def test_cpu_tensors_never_launch_the_single_scale_kernels():
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.normal(size=(1, 9, 9, 8)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(1, 2, 3, 3, 8)).astype(np.float32))
+    before = (xcorr_kernel.xcorr_depthwise_multi_cuda.launches,
+              xcorr_kernel.xcorr_depthwise_pairwise_cuda.launches)
+    xcorr_depthwise_multi(x, k)
+    xcorr_depthwise_pairwise(x, k[:, 0])
+    assert (xcorr_kernel.xcorr_depthwise_multi_cuda.launches,
+            xcorr_kernel.xcorr_depthwise_pairwise_cuda.launches) == before
+    with pytest.raises(ValueError, match="CUDA"):
+        xcorr_kernel.xcorr_depthwise_multi_cuda(x, k)
+    with pytest.raises(ValueError, match="CUDA"):
+        xcorr_kernel.xcorr_depthwise_pairwise_cuda(x, k[:, 0])
+    np.testing.assert_allclose(
+        xcorr_depthwise_pairwise_reference(x, k[:, 0]).numpy(),
+        xcorr_depthwise_multi_reference(x, k)[:, 0].numpy(), atol=0, rtol=0)
 
 
 def test_cpu_tensor_never_launches_the_kernel():

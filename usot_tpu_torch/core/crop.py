@@ -1,12 +1,20 @@
-"""SiamFC-style host subwindow crop (ref: lib/utils/track_utils.py:30-119).
+"""SiamFC-style subwindow crops (ref: lib/utils/track_utils.py:30-119).
 
-Same padding and geometry as `usot_tpu.core.crop.get_subwindow`, without
-OpenCV: the resize is half-pixel-centre, edge-clamped bilinear
+`get_subwindow` is the host crop of the parity tracker and of engine
+init. Same padding and geometry as `usot_tpu.core.crop.get_subwindow`,
+without OpenCV: the resize is half-pixel-centre, edge-clamped bilinear
 (`F.interpolate(mode="bilinear", align_corners=False)`, what
 `cv2.resize`'s INTER_LINEAR computes in fixed point), rounded to uint8.
 Against `cv2.resize` it differs by at most one grey level per pixel.
+
+`subwindow_gather` is the engines' device crop and `subwindow_matmul`
+its matmul formulation (`usot_tpu/core/crop.py:109-255`; JAX picks the
+gather off the TPU, and so do the engines here): float bilinear, one
+window per lane of a (B, H, W, C) frame batch, in one call.
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -105,3 +113,131 @@ def get_subwindow(im, pos, model_sz, original_sz, avg_chans, target_sz=None,
                                context_ymax]
     crop_info["pad_info"] = [top_pad, left_pad, r, cc]
     return im_patch, crop_info
+
+
+# ---------------------------------------------------------------------------
+# Device crops for the tracking engines: dynamic windows, one per lane,
+# bilinear, avg fill outside the valid region.
+# ---------------------------------------------------------------------------
+
+def _window(pos_x, pos_y, original_sz, model_sz: int):
+    """Source geometry shared by both device crops (f32, per lane):
+    the window's integer top-left and the (B, model_sz) offsets of the
+    output pixel centres in it, with cv2's INTER_LINEAR convention
+    src = (dst + 0.5) * scale - 0.5. torch.round rounds half to even, as
+    jnp.round does."""
+    sz = torch.round(original_sz)
+    cxt_xmin = torch.round(pos_x - (original_sz + 1.0) / 2.0)
+    cxt_ymin = torch.round(pos_y - (original_sz + 1.0) / 2.0)
+    scale = sz / float(model_sz)
+    steps = torch.arange(model_sz, dtype=torch.float32,
+                         device=original_sz.device)
+    d = (steps[None, :] + 0.5) * scale[:, None] - 0.5       # (B, S)
+    return cxt_xmin[:, None] + d, cxt_ymin[:, None] + d
+
+
+def _extent(valid, size: int, like):
+    if valid is None:
+        return torch.full_like(like, float(size))
+    return valid
+
+
+def subwindow_gather(frames, pos_x, pos_y, original_sz, avg_chans,
+                     model_sz: int, valid_h=None, valid_w=None):
+    """Bilinear gather crop of one window per lane (counterpart of
+    `usot_tpu.core.crop.subwindow_jax`, which JAX vmaps over lanes).
+
+    frames: (B, H, W, C) uint8 or float; pos_x, pos_y, original_sz: (B,)
+    f32; avg_chans: (B, C); valid_h/valid_w: optional (B,) valid extent
+    of each lane's canvas (taps outside it read avg_chans).
+    Returns (B, model_sz, model_sz, C) f32. Geometry matches
+    `get_subwindow`: the window is [cxt_min, cxt_min + round(sz) - 1]
+    with cxt_min = round(pos - (sz + 1) / 2)."""
+    b, h, w, c = frames.shape
+    src_x, src_y = _window(pos_x, pos_y, original_sz, model_sz)
+    vh = _extent(valid_h, h, pos_x)[:, None]
+    vw = _extent(valid_w, w, pos_x)[:, None]
+
+    def taps(coord, size, valid_size):
+        c0 = torch.floor(coord)
+        frac = coord - c0
+        i0 = c0.long()
+        i1 = i0 + 1
+        ok0 = (i0 >= 0) & (i0 < valid_size)
+        ok1 = (i1 >= 0) & (i1 < valid_size)
+        return (i0.clamp(0, size - 1), i1.clamp(0, size - 1), frac, ok0, ok1)
+
+    x0, x1, fx, vx0, vx1 = taps(src_x, w, vw)               # (B, S)
+    y0, y1, fy, vy0, vy1 = taps(src_y, h, vh)
+    flat = frames.reshape(b * h * w, c)
+    base = torch.arange(b, device=frames.device)[:, None, None] * (h * w)
+    avg = avg_chans.to(torch.float32)[:, None, None, :]
+
+    def pixel(yi, vy, xi, vx):
+        idx = base + yi[:, :, None] * w + xi[:, None, :]     # (B, S, S)
+        val = flat.index_select(0, idx.reshape(-1)).to(torch.float32)
+        val = val.reshape(b, model_sz, model_sz, c)
+        ok = (vy[:, :, None] & vx[:, None, :])[..., None]
+        return torch.where(ok, val, avg)
+
+    p00 = pixel(y0, vy0, x0, vx0)
+    p01 = pixel(y0, vy0, x1, vx1)
+    p10 = pixel(y1, vy1, x0, vx0)
+    p11 = pixel(y1, vy1, x1, vx1)
+    fx = fx[:, None, :, None]
+    fy = fy[:, :, None, None]
+    top = p00 * (1 - fx) + p01 * fx
+    bot = p10 * (1 - fx) + p11 * fx
+    return top * (1 - fy) + bot * fy
+
+
+@contextlib.contextmanager
+def _full_f32_matmul():
+    """cuBLAS without TF32 for the block, whatever the global flag says:
+    TF32 keeps ~3 decimal digits, ~0.5/255 of a grey level here (the TPU
+    twin of this trap is `crop.py`'s Precision.HIGHEST)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def subwindow_matmul(frames, pos_x, pos_y, original_sz, avg_chans,
+                     model_sz: int, valid_h=None, valid_w=None):
+    """`subwindow_gather` as two batched matmuls (counterpart of
+    `usot_tpu.core.crop.subwindow_matmul`):
+
+        out = Ry @ im @ Rx^T + avg * (1 - sy (x) sx)
+
+    Ry (B, S, H) / Rx (B, S, W) hold each output row's / column's two
+    bilinear taps, zeroed outside the valid region; sy/sx are their row
+    sums. The avg fill separates because a tap is invalid iff its y OR x
+    index is: the valid weight mass factors as sy * sx. Same arguments
+    and result as `subwindow_gather`; agrees with it within 3e-5."""
+    b, h, w, c = frames.shape
+    src_x, src_y = _window(pos_x, pos_y, original_sz, model_sz)
+    vh = _extent(valid_h, h, pos_x)[:, None, None]
+    vw = _extent(valid_w, w, pos_x)[:, None, None]
+
+    def weights(src, size, valid_size):
+        i0 = torch.floor(src)
+        frac = (src - i0)[..., None]
+        i0 = i0[..., None]                                  # (B, S, 1)
+        grid = torch.arange(size, dtype=torch.float32,
+                            device=src.device)[None, None, :]
+        t0 = torch.where((i0 >= 0) & (i0 < valid_size), 1.0 - frac, 0.0)
+        t1 = torch.where((i0 + 1 >= 0) & (i0 + 1 < valid_size), frac, 0.0)
+        return t0 * (grid == i0) + t1 * (grid == i0 + 1.0)  # (B, S, N)
+
+    ry = weights(src_y, h, vh)
+    rx = weights(src_x, w, vw)
+    sy = ry.sum(dim=2)
+    sx = rx.sum(dim=2)
+    with _full_f32_matmul():
+        rows = torch.bmm(ry, frames.reshape(b, h, w * c).to(torch.float32))
+        rows = rows.reshape(b, model_sz, w, c)
+        out = torch.einsum("biwc,bjw->bijc", rows, rx)
+    miss = 1.0 - sy[:, :, None, None] * sx[:, None, :, None]
+    return out + avg_chans.to(torch.float32)[:, None, None, :] * miss

@@ -1,8 +1,9 @@
 """Correlation heads: multi-scale encoders, fused depthwise correlation,
 confidence-value memory fusion and the cls/reg towers.
 
-Counterpart of `usot_tpu/models/head.py:23-246` (ref:
-lib/models/connect.py:12-281). The three "scales" are three differently
+Counterpart of `usot_tpu/models/head.py:23-361` (ref:
+lib/models/connect.py:12-281), with the engines' folded inference path
+(`fold_inference_head`). The three "scales" are three differently
 dilated 3x3 VALID convs on the same input; the kernel (z) and search (x)
 sides have their own weights. The three depthwise correlations are
 fused with a softmax-weighted learnable 3-vector. Public methods take and
@@ -188,16 +189,106 @@ class BoxTowerReg(nn.Module):
                           bn_train: bool = False):
         """Online memory branch with PRE-ENCODED queue kernels: cls_mem_zs
         is 3 x (B*mem_size, h_i, w_i, C)."""
-        batch = cls_x[0].shape[0]
-        if self.fused_xcorr:
-            # one launch, cls_x never repeated to B*M
-            cls_mem_dw = self.cls_dw.multi(cls_mem_zs, cls_x, mem_size)
-        else:
-            store_repeat = [torch.repeat_interleave(x, mem_size, dim=0)
-                            for x in cls_x]
-            dw = self.cls_dw(cls_mem_zs, store_repeat)  # (B*M, Ho, Wo, C)
-            cls_mem_dw = dw.reshape((batch, mem_size) + tuple(dw.shape[1:]))
-
+        cls_mem_dw = self.memory_correlation(cls_x, cls_mem_zs, mem_size)
         fused = self.conf_fusion(cls_mem_dw, bn_train)  # (B, Ho, Wo, C)
         c_mem = self.cls_memory_tower(to_nchw(fused), bn_train)
         return to_nhwc(0.1 * self.cls_memory_pred(c_mem))
+
+    def memory_correlation(self, cls_x, cls_mem_zs, mem_size: int):
+        """GroupDW of the search encodings against the M queue kernels
+        (3 x (B*M, h_i, w_i, C)). Returns (B, M, Ho, Wo, C)."""
+        if self.fused_xcorr:
+            # one launch, cls_x never repeated to B*M
+            return self.cls_dw.multi(cls_mem_zs, cls_x, mem_size)
+        batch = cls_x[0].shape[0]
+        store_repeat = [torch.repeat_interleave(x, mem_size, dim=0)
+                        for x in cls_x]
+        dw = self.cls_dw(cls_mem_zs, store_repeat)  # (B*M, Ho, Wo, C)
+        return dw.reshape((batch, mem_size) + tuple(dw.shape[1:]))
+
+    # -- folded-weight inference path (see fold_inference_head) --
+
+    def offline_fused_enc(self, xf, zf_enc, fused):
+        """Offline branch on FOLDED search-encoder weights and
+        pre-encoded template kernels. Same math as offline_preenc up to
+        the f32 rounding of the fold. Returns (bbox, cls, cls_x)."""
+        cls_x, reg_x = _apply_fused_encoders(xf, fused)
+        cls_z, reg_z = zf_enc
+        bbox, cls, _, _ = self.offline_preenc(xf, list(cls_z), list(reg_z),
+                                              cls_x=cls_x, reg_x=reg_x)
+        return bbox, cls, cls_x
+
+    def memory_cls_fused(self, cls_x, cls_mem_zs, mem_size: int, fused):
+        """Memory branch with ConfFusion's two convs FOLDED into one
+        2C-wide conv ([conf || value]); the arithmetic after it (relu,
+        clamp [-6, 4], exp, normalise over the queue, weighted sum) is
+        ConfFusion's."""
+        dw = self.memory_correlation(cls_x, cls_mem_zs, mem_size)
+        b, m, h, w, c = dw.shape
+        flat = to_nchw(dw.reshape(b * m, h, w, c))
+        w_cv, b_cv = fused["conf_value"]
+        y = F.relu(F.conv2d(flat, w_cv.to(flat.dtype), padding=1)
+                   + b_cv.to(flat.dtype)[None, :, None, None])
+        conf = torch.exp(torch.clamp(y[:, :c], -6.0, 4.0))
+        conf = conf.reshape(b, m, c, h, w)
+        conf = conf / torch.sum(conf, dim=1, keepdim=True)
+        value = y[:, c:].reshape(b, m, c, h, w)
+        c_mem = self.cls_memory_tower(torch.sum(conf * value, dim=1))
+        return to_nhwc(0.1 * self.cls_memory_pred(c_mem))
+
+
+# -- folded inference-head weights (counterpart of
+# usot_tpu/models/head.py:299-361): BatchNorm folded into the convs, the
+# six search-side encoder blocks fused into three 2C-wide convs
+# ([cls || reg] per dilation) and ConfFusion's two into one
+# ([conf || value]). The wide convs are plain F.conv2d, as JAX leaves
+# them to XLA. --
+
+def _fold_conv_bn(block: ConvBN, eps: float = 1e-5):
+    """W' = W * gamma / sqrt(var + eps), b' = beta - mean * gamma /
+    sqrt(var + eps) (+ the conv bias, scaled). f32, as the JAX fold."""
+    conv, bn = getattr(block, "0"), getattr(block, "1")
+    s = bn.weight.float() / torch.sqrt(bn.running_var.float() + eps)
+    b = bn.bias.float() - bn.running_mean.float() * s
+    if conv.bias is not None:
+        b = b + conv.bias.float() * s
+    return conv.weight.float() * s[:, None, None, None], b
+
+
+@torch.no_grad()
+def fold_inference_head(head: "BoxTowerReg"):
+    """Folded inference-head weights from `head`'s own parameters and BN
+    running stats, on its device:
+
+        {"encoders": [(W (2C, C, 3, 3), b (2C,)) per dilation],
+         "conf_value": (W (2C, C, 3, 3), b (2C,))}
+
+    each W the output-channel concatenation [cls || reg] or
+    [conf || value] of two ConvBN blocks, OIHW. Engines fold once per
+    checkpoint; a frame step then runs 3 encoder convs instead of 6 and
+    one ConfFusion conv instead of 2, with no BN ops."""
+    encoders = []
+    for name, _ in SCALES:
+        wc, bc = _fold_conv_bn(getattr(head.cls_encode, f"{name}_s"))
+        wr, br = _fold_conv_bn(getattr(head.reg_encode, f"{name}_s"))
+        encoders.append((torch.cat([wc, wr]), torch.cat([bc, br])))
+    wconf, bconf = _fold_conv_bn(head.conf_fusion.conf_gen)
+    wval, bval = _fold_conv_bn(head.conf_fusion.value_gen)
+    return {"encoders": encoders,
+            "conf_value": (torch.cat([wconf, wval]),
+                           torch.cat([bconf, bval]))}
+
+
+def _apply_fused_encoders(xf, fused):
+    """xf (B, H, W, C) -> (cls_x, reg_x) lists of 3 NHWC encodings via
+    the three folded 2C-wide convs."""
+    x = to_nchw(xf)
+    cls_x, reg_x = [], []
+    for (w, b), (_, dil) in zip(fused["encoders"], SCALES):
+        y = F.relu(F.conv2d(x, w.to(x.dtype), dilation=dil)
+                   + b.to(x.dtype)[None, :, None, None])
+        half = y.shape[1] // 2
+        cls_x.append(to_nhwc(y[:, :half]))
+        reg_x.append(to_nhwc(y[:, half:]))
+    return cls_x, reg_x
+

@@ -55,7 +55,7 @@ class USOTNet(nn.Module):
 
     Inference methods: `template_features`, `search_features`,
     `track_offline`, `track_memory(_batched)`, `encode_template`,
-    `encode_memory_kernels`, `track_memory_encoded(_batched)`,
+    `encode_memory_kernels`, `track_memory_encoded(_batched|_fused)`,
     `pool_memory_feature`. `fused_xcorr=True` sends the three GroupDW
     correlations of a frame to the hand-written CUDA kernel on a GPU
     (inference only: the kernel has no backward)."""
@@ -144,6 +144,26 @@ class USOTNet(nn.Module):
         flat = [q.reshape((b * n_q,) + tuple(q.shape[2:])) for q in queue_enc]
         cls_mem = self.connect_model.memory_cls_preenc(cls_x, flat,
                                                        mem_size=n_q)
+        return cls, bbox, cls_mem
+
+    def track_memory_encoded_fused(self, xf, zf_enc, queue_enc, fused):
+        """track_memory_encoded on FOLDED inference-head weights
+        (`fused` from `models.head.fold_inference_head`, computed once
+        per checkpoint): 3 double-wide search-encoder convs instead of
+        6 and one ConfFusion conv instead of 2, no BN ops. queue_enc
+        tensors are (B, N_q, h_i, w_i, C), or (N_q, h_i, w_i, C) at
+        batch size 1."""
+        cls_z, reg_z = zf_enc
+        bbox, cls, cls_x = self.connect_model.offline_fused_enc(
+            xf, (cls_z, reg_z), fused)
+        if queue_enc[0].dim() == 5:
+            b, n_q = queue_enc[0].shape[0], queue_enc[0].shape[1]
+            flat = [q.reshape((b * n_q,) + tuple(q.shape[2:]))
+                    for q in queue_enc]
+        else:
+            n_q, flat = queue_enc[0].shape[0], list(queue_enc)
+        cls_mem = self.connect_model.memory_cls_fused(cls_x, flat, n_q,
+                                                      fused)
         return cls, bbox, cls_mem
 
     def pool_memory_feature(self, xf, search_bbox):

@@ -5,19 +5,29 @@ Counterpart of `usot_tpu/ops/xcorr.py:47-143`. NHWC throughout:
     out[b, i, j, c] = sum_{u,v} x[b, i+u, j+v, c] * k[b, u, v, c]   (VALID)
 
 * `xcorr_depthwise` — the reference's grouped-conv trick
-  (ref: lib/models/connect.py:147-157), pairwise.
-* `xcorr_groupdw_reference` — the fused 3-scale GroupDW sum, one search
-  map against M kernels, as a broadcast shift-multiply with f32
-  accumulation (the plain version of the CUDA kernel).
-* `xcorr_groupdw` — dispatch: a CPU tensor goes to the plain version, a
-  CUDA tensor to the hand-written kernel (`xcorr_kernel.py`) or raises.
+  (ref: lib/models/connect.py:147-157), pairwise; it mirrors JAX's XLA
+  route and is what the unfused model runs.
+* `xcorr_groupdw` (K1) — the fused 3-scale GroupDW sum, one search map
+  against M kernels per scale;
+* `xcorr_depthwise_multi` (K2) — one scale, one search map against M
+  kernels;
+* `xcorr_depthwise_pairwise` (K3) — one scale, pairwise.
+
+Each of the last three dispatches on the device its tensors lie on: a
+CPU tensor goes to the plain version beside it (`*_reference`, a
+broadcast shift-multiply with f32 accumulation, output in the input
+dtype), a CUDA tensor to the hand-written kernel (`xcorr_kernel.py`),
+which raises on what it does not take. There is no fallback.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from usot_tpu_torch.ops.xcorr_kernel import groupdw_out_hw, xcorr_groupdw_cuda
+from usot_tpu_torch.ops.xcorr_kernel import (groupdw_out_hw,
+                                             xcorr_depthwise_multi_cuda,
+                                             xcorr_depthwise_pairwise_cuda,
+                                             xcorr_groupdw_cuda)
 
 
 def xcorr_depthwise(x, kernel):
@@ -31,29 +41,68 @@ def xcorr_depthwise(x, kernel):
     return out.reshape(b, c, ho, wo).permute(0, 2, 3, 1)
 
 
+def _shift_multiply_add(acc, x, k):
+    """acc (B, M, Ho, Wo, C) f32 += multi-xcorr(x (B, Hx, Wx, C),
+    k (B, M, Hk, Wk, C)), one broadcast multiply-add per tap."""
+    ho, wo = acc.shape[2], acc.shape[3]
+    x32, k32 = x.float(), k.float()
+    for u in range(k.shape[2]):
+        for v in range(k.shape[3]):
+            acc += x32[:, None, u:u + ho, v:v + wo, :] \
+                * k32[:, :, u, v, None, None, :]
+    return acc
+
+
+def _zeros_like_out(x, b, m, ho, wo, c):
+    return torch.zeros((b, m, ho, wo, c), dtype=torch.float32,
+                       device=x.device)
+
+
 def xcorr_groupdw_reference(xs, ks):
-    """Plain PyTorch fused GroupDW: sum_s multi-xcorr(xs[s], ks[s]).
+    """Plain fused GroupDW: sum_s multi-xcorr(xs[s], ks[s]).
 
     xs: 3 search encodings (B, Hx_s, Wx_s, C); ks: 3 kernel stacks
     (B, M, Hk_s, Wk_s, C) with the softmax weights folded in.
     Returns (B, M, Ho, Wo, C) in the input dtype, accumulated in f32."""
     b, m, c = ks[0].shape[0], ks[0].shape[1], ks[0].shape[4]
     ho, wo = groupdw_out_hw(xs, ks)
-    acc = torch.zeros((b, m, ho, wo, c), dtype=torch.float32,
-                      device=xs[0].device)
+    acc = _zeros_like_out(xs[0], b, m, ho, wo, c)
     for x, k in zip(xs, ks):
-        x32, k32 = x.float(), k.float()
-        for u in range(k.shape[2]):
-            for v in range(k.shape[3]):
-                acc += x32[:, None, u:u + ho, v:v + wo, :] \
-                    * k32[:, :, u, v, None, None, :]
+        _shift_multiply_add(acc, x, k)
     return acc.to(xs[0].dtype)
 
 
+def xcorr_depthwise_multi_reference(x, kernel):
+    """Plain K2: x (B, Hx, Wx, C), kernel (B, M, Hk, Wk, C) ->
+    (B, M, Ho, Wo, C) in the input dtype, accumulated in f32."""
+    b, hx, wx, c = x.shape
+    m, hk, wk = kernel.shape[1], kernel.shape[2], kernel.shape[3]
+    acc = _zeros_like_out(x, b, m, hx - hk + 1, wx - wk + 1, c)
+    return _shift_multiply_add(acc, x, kernel).to(x.dtype)
+
+
+def xcorr_depthwise_pairwise_reference(x, kernel):
+    """Plain K3: x (B, Hx, Wx, C), kernel (B, Hk, Wk, C) ->
+    (B, Ho, Wo, C): K2's plain version at M = 1."""
+    return xcorr_depthwise_multi_reference(x, kernel[:, None])[:, 0]
+
+
 def xcorr_groupdw(xs, ks):
-    """Fused GroupDW on the device the tensors lie on: the plain version
-    for CPU tensors, the CUDA kernel for CUDA tensors (which raises on
-    what it does not take; there is no fallback)."""
+    """K1 on the device the tensors lie on (see the module note)."""
     if xs[0].device.type == "cpu":
         return xcorr_groupdw_reference(xs, ks)
     return xcorr_groupdw_cuda(xs, ks)
+
+
+def xcorr_depthwise_multi(x, kernel):
+    """K2 on the device the tensors lie on (see the module note)."""
+    if x.device.type == "cpu":
+        return xcorr_depthwise_multi_reference(x, kernel)
+    return xcorr_depthwise_multi_cuda(x, kernel)
+
+
+def xcorr_depthwise_pairwise(x, kernel):
+    """K3 on the device the tensors lie on (see the module note)."""
+    if x.device.type == "cpu":
+        return xcorr_depthwise_pairwise_reference(x, kernel)
+    return xcorr_depthwise_pairwise_cuda(x, kernel)
