@@ -8,16 +8,20 @@ Phases, each of which raises on failure (exit code != 0):
   2. build: the hand-written correlation kernels, one nvcc per source,
      all started together, for sm_90a: K1 from
      `usot_tpu_torch/ops/csrc/xcorr_groupdw.cu`, K2 and K3 from
-     `usot_tpu_torch/ops/csrc/xcorr_depthwise.cu`;
+     `usot_tpu_torch/ops/csrc/xcorr_depthwise.cu`, both over the tiled
+     routine of `xcorr_tile.cuh`; each instantiation's `-Xptxas -v`
+     registers and spills, failing on any spill;
   3. K1 check: the kernel against its plain PyTorch version at the
      parity tracker's four shapes ({255, 271} x M in {1, 7}, B=1), the
      batch engine's two (B=32, instance 255, M in {1, 7}), C=256, f32, a
-     ragged shape and bf16, with its time, the plain version's, a
+     ragged shape, bf16 and the tiled kernel's edges (C=40, odd C, M=5,
+     Ho 13/27, Wo 27/33/40), with its time, the plain version's, a
      grouped-conv library call's and the bound;
   4. K2/K3 checks: the same for the single-scale kernels, at their
      tools' shapes (K3 B=32 and B=224, K2 B=32 with M=7; 29x29 search,
      5x5 kernel, C=256) in f32 and bf16, the three shapes of
-     `tests/test_ops.py:225-227` and a ragged one (B=3, C=96, odd Wo);
+     `tests/test_ops.py:225-227`, a ragged one (B=3, C=96, odd Wo) and
+     the same edges, B=1 at M=1 and 7 among them;
   5. parity slice: USOT* tracking at full width (width 64, channels 256,
      memory queue 7), random seeded weights with calibrated BN stats, two
      synthetic 480x640 videos (instance 255 and 271) through
@@ -45,6 +49,7 @@ import contextlib
 import copy
 import json
 import os
+import re
 import statistics
 import sys
 import time
@@ -217,6 +222,25 @@ def kernel_checks(kernel, reference, device, c=256, timed=True):
                   torch.float32, False))
     cases.append((f"instance 255, B=1, M=7, C={c}, bf16",
                   (1, 7, c, 29, 29), torch.bfloat16, False))
+    # edges of the tiled kernel: a partial 32-channel slab, odd C (no
+    # 16-byte copies), M in no grouping, Ho and Wo not multiples of the
+    # band or of the 9-wide strip (Wo=33: four strips, the last of 6),
+    # Wo over one 36-column tile
+    for label, shape, dtype in (
+            ("edge C=40, B=2, M=3, Ho=Wo=25", (2, 3, 40, 29, 29), "f32"),
+            ("edge odd C=37, B=2, M=3, Ho=13, Wo=16", (2, 3, 37, 17, 20),
+             "bf16"),
+            ("edge odd C=37, B=2, M=3, Ho=13, Wo=16", (2, 3, 37, 17, 20),
+             "f32"),
+            ("edge M=5, B=2, C=64, Ho=27, Wo=33", (2, 5, 64, 31, 37), "f32"),
+            (f"edge Ho=13, Wo=27, B=4, M=7, C={c}", (4, 7, c, 17, 31),
+             "f32"),
+            (f"edge Wo=33, B=1, M=1, C={c}", (1, 1, c, 29, 37), "bf16"),
+            ("edge Wo=40 (two column tiles), B=1, M=2, C=32",
+             (1, 2, 32, 9, 44), "f32")):
+        cases.append((f"{label}, {dtype}", shape,
+                      torch.float32 if dtype == "f32" else torch.bfloat16,
+                      False))
     records = []
     for label, (b, m, cc, hx, wx), dtype, production in cases:
         xs, ks = groupdw_inputs(rng, b, m, cc, hx, wx, dtype, device)
@@ -257,6 +281,16 @@ def single_cases(c=256):
         for dtype in (f32, bf16):  # ragged: B=3, C=96, Wo=13
             cases.append((tag, 3, m if m is None else 5, ragged_c, 12, 15,
                           4, 3, dtype))
+    # edges of the tiled kernel (see `kernel_checks`), B=1 at M=1 and 7
+    for tag, m in (("K3", None), ("K2", 5)):
+        cases += [(tag, 2, m, 40, 29, 29, 5, 5, f32),
+                  (tag, 2, m, 37, 17, 20, 5, 5, bf16),
+                  (tag, 2, m, 37, 31, 37, 5, 5, f32)]
+    cases += [("K3", 1, None, c, 17, 37, 5, 5, f32),
+              ("K2", 1, 7, c, 31, 31, 5, 5, f32),
+              ("K2", 1, 7, c, 17, 31, 5, 5, bf16),
+              ("K3", 1, None, 32, 9, 44, 3, 5, bf16),  # two column tiles
+              ("K2", 1, 3, 32, 9, 44, 5, 5, f32)]
     return cases
 
 
@@ -665,6 +699,26 @@ def run_scan_engine(model, device, n_frames=33, chunk=16, h=480, w=640,
 
 # ------------------------------------------------------------------- main
 
+def ptxas_report(built):
+    """Prints each kernel instantiation's `-Xptxas -v` lines (entry,
+    registers, stack and spills) and fails on any spill. Returns the
+    lines by source."""
+    report = {}
+    for src, (_, log) in built.items():
+        lines = [ln.strip() for ln in log.splitlines()
+                 if "entry function" in ln or "registers" in ln
+                 or "spill" in ln]
+        for line in lines:
+            print(f"  ptxas {src}: {line}", flush=True)
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                               r"spill loads", line)
+            check(spills is None or spills.groups() == ("0", "0"),
+                  f"ptxas {src}: register spills: {line}")
+        report[src] = lines
+    return report
+
+
+
 def kernel_line(tag, rec, launches, by_path):
     return {**KERNELS[tag], "launches": launches, "launches_by_path": by_path,
             "shape": rec["shape"], "max_abs_err": rec["max_abs_err"],
@@ -695,10 +749,7 @@ def main() -> int:
     built = xcorr_kernel.build_all()
     print(f"build: {', '.join(p.name for p, _ in built.values())} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    for src, (_, log) in built.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {src}: {line.strip()}", flush=True)
+    ptxas = ptxas_report(built)
 
     k1_records = kernel_checks(xcorr_kernel.xcorr_groupdw_cuda,
                                xcorr_groupdw_reference, device)
@@ -735,6 +786,7 @@ def main() -> int:
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched")
     summary = {"card": card, "kind": kind, "kernels": kernels,
+               "ptxas": ptxas,
                "k1_shapes": k1_records, "k2_k3_shapes": single_records,
                "slice": [r for r, _ in results], "gpu_vs_cpu": errs,
                "tools": tool_records, "batch_engine": batch_rec,

@@ -83,13 +83,16 @@ def test_entry_points_raise_without_a_gpu():
 
 
 def test_groupdw_kernel_source_is_for_hopper():
-    """The kernel is CUDA C++ built for sm_90a from the repo's source."""
+    """The kernel is CUDA C++ built for sm_90a from the repo's source:
+    an entry point over the tiled kernel of `xcorr_tile.cuh`."""
     from usot_tpu_torch.ops import xcorr_kernel
 
     assert xcorr_kernel.SOURCE.exists()
     assert "arch=compute_90a,code=sm_90a" in xcorr_kernel.NVCC_FLAGS
     src = xcorr_kernel.SOURCE.read_text()
-    assert "__global__" in src and 'extern "C"' in src
+    tile = (xcorr_kernel.CSRC / "xcorr_tile.cuh").read_text()
+    assert '#include "xcorr_tile.cuh"' in src and 'extern "C"' in src
+    assert "__global__" in tile and "launch<3>" in src
     assert "xcorr_groupdw_pallas" in src  # names the TPU kernel it replaces
 
 
@@ -101,7 +104,9 @@ def test_depthwise_kernel_source_is_for_hopper():
     src = xcorr_kernel.DEPTHWISE_SOURCE.read_text()
     assert xcorr_kernel.DEPTHWISE_SOURCE in xcorr_kernel.SOURCES
     assert "arch=compute_90a,code=sm_90a" in xcorr_kernel.NVCC_FLAGS
-    assert "__global__" in src and src.count('extern "C"') == 2
+    tile = (xcorr_kernel.CSRC / "xcorr_tile.cuh").read_text()
+    assert '#include "xcorr_tile.cuh"' in src and "__global__" in tile
+    assert src.count('extern "C"') == 2 and "launch<1>" in src
     assert "usot_xcorr_depthwise_multi  <- xcorr_depthwise_multi_pallas" \
         in src
     assert "usot_xcorr_depthwise        <- xcorr_depthwise_pallas" in src

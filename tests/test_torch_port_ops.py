@@ -206,6 +206,44 @@ def test_kernel_wrapper_refuses_cpu_tensors():
                                         [torch.from_numpy(k) for k in ks])
 
 
+def test_library_path_keys_on_the_headers(tmp_path):
+    """A kernel library is rebuilt when a header beside its source
+    changes, not only when the source does."""
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(xcorr_kernel.CSRC, csrc)
+    header = csrc / "xcorr_tile.cuh"
+    paths = {}
+    for name in ("xcorr_groupdw.cu", "xcorr_depthwise.cu"):
+        source = csrc / name
+        assert '#include "xcorr_tile.cuh"' in source.read_text()
+        paths[name] = xcorr_kernel.library_path(source)
+        assert paths[name] == xcorr_kernel.library_path(
+            xcorr_kernel.CSRC / name)
+    header.write_bytes(header.read_bytes() + b"\n// changed\n")
+    for name, before in paths.items():
+        after = xcorr_kernel.library_path(csrc / name)
+        assert after != before and after.parent == before.parent
+        assert after.name.startswith(f"lib{name[:-3]}_")
+
+
+def test_kernel_wrappers_refuse_taps_wider_than_eight():
+    """The tiled kernels keep a tap row in registers: at most 8 x 8."""
+    x = torch.zeros(1, 12, 12, 4)
+    with pytest.raises(ValueError, match="at most 8 x 8"):
+        xcorr_kernel.xcorr_depthwise_multi_cuda(x, torch.zeros(1, 2, 3, 9, 4))
+    with pytest.raises(ValueError, match="at most 8 x 8"):
+        xcorr_kernel.xcorr_depthwise_pairwise_cuda(x, torch.zeros(1, 9, 3, 4))
+    xs = [torch.zeros(1, 13, 13, 4)] * 3
+    ks = [torch.zeros(1, 1, 9, 9, 4)] * 3
+    with pytest.raises(ValueError, match="at most 8 x 8"):
+        xcorr_kernel.xcorr_groupdw_cuda(xs, ks)
+    # within the limit, a CPU tensor is still refused for its device
+    with pytest.raises(ValueError, match="CUDA"):
+        xcorr_kernel.xcorr_depthwise_multi_cuda(x, torch.zeros(1, 2, 8, 8, 4))
+
+
 def test_groupdw_rejects_mismatched_scales():
     rng = np.random.default_rng(4)
     xs, ks = _groupdw_inputs(rng, 1, 1, 8, 9, 9)

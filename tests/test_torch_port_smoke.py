@@ -31,10 +31,15 @@ def test_kernel_checks_pass_the_plain_version():
     records = chip_smoke.kernel_checks(xcorr_groupdw_reference,
                                        xcorr_groupdw_reference, CPU, c=16,
                                        timed=False)
-    assert len(records) == 8
+    assert len(records) == 15
     assert [r["out"][1:4] for r in records[:4]] == [
         [1, 25, 25], [7, 25, 25], [1, 27, 27], [7, 27, 27]]
     assert [r["out"][:2] for r in records[4:6]] == [[32, 1], [32, 7]]
+    edges = [r["out"] for r in records if r["shape"].startswith("edge")]
+    assert edges == [[2, 3, 25, 25, 40], [2, 3, 13, 16, 37],
+                     [2, 3, 13, 16, 37], [2, 5, 27, 33, 64],
+                     [4, 7, 13, 27, 16], [1, 1, 25, 33, 16],
+                     [1, 2, 5, 40, 32]]
     assert all(r["max_abs_err"] <= r["tol"] for r in records)
     assert all(r["bound_by"] in ("bytes", "operations") for r in records)
 
@@ -70,11 +75,21 @@ def test_bound_of_the_memory_head_launch():
 
 def test_single_checks_pass_the_plain_versions():
     records = chip_smoke.single_checks(PLAIN, PLAIN, CPU, c=8, timed=False)
-    assert len(records) == 16
+    assert len(records) == 27
     tools = [r for r in records if r["x"][1:] == [29, 29, 8]]
     assert [(r["kernel"], r["out"][:2]) for r in tools] == [
         ("K3", [32, 25]), ("K3", [32, 25]), ("K3", [224, 25]),
         ("K3", [224, 25]), ("K2", [32, 7]), ("K2", [32, 7])]
+    # the tiled kernels' edges: C=40, odd C, M=5, Ho 13/27, Wo 27/33/40,
+    # B=1
+    edges = [(r["kernel"], r["out"]) for r in records[16:]]
+    assert edges == [
+        ("K3", [2, 25, 25, 40]), ("K3", [2, 13, 16, 37]),
+        ("K3", [2, 27, 33, 37]), ("K2", [2, 5, 25, 25, 40]),
+        ("K2", [2, 5, 13, 16, 37]), ("K2", [2, 5, 27, 33, 37]),
+        ("K3", [1, 13, 33, 8]), ("K2", [1, 7, 27, 27, 8]),
+        ("K2", [1, 7, 13, 27, 8]), ("K3", [1, 7, 40, 32]),
+        ("K2", [1, 3, 5, 40, 32])]
     assert all(r["max_abs_err"] <= r["tol"] for r in records)
 
 
@@ -112,6 +127,19 @@ def test_bound_of_the_tools_shapes():
     out2 = torch.empty(32, 7, 25, 25, 256, dtype=torch.bfloat16)
     ms, by = chip_smoke.roofline([x, k2], out2, 25)
     assert by == "operations" and ms == pytest.approx(2.6746e-2, rel=1e-3)
+
+
+def test_ptxas_report_fails_on_spills():
+    clean = ("ptxas info    : Compiling entry function '_Z1kv' for 'sm_90a'\n"
+             "ptxas info    : Function properties for _Z1kv\n"
+             "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+             "loads\n"
+             "ptxas info    : Used 64 registers, used 1 barriers\n")
+    report = chip_smoke.ptxas_report({"a.cu": (None, clean)})
+    assert len(report["a.cu"]) == 3
+    spilled = clean.replace("0 bytes spill stores", "8 bytes spill stores")
+    with pytest.raises(RuntimeError, match="spills"):
+        chip_smoke.ptxas_report({"a.cu": (None, spilled)})
 
 
 def test_tools_stages_run_on_the_cpu():

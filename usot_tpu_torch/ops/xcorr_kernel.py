@@ -10,12 +10,14 @@ Counterparts of the three TPU kernels of
 * K3 `xcorr_depthwise_pairwise_cuda` (`csrc/xcorr_depthwise.cu`) <- the
   pairwise correlation, `xcorr_depthwise_pallas` (`:190`).
 
-Each source's note gives its kernel's design and its bound on an H100.
-A source is compiled with `nvcc -gencode arch=compute_90a,code=sm_90a`
-into a shared library with a plain C interface at first use, into
-`usot_tpu_torch/_build/` (git-ignored) under a name keyed by a hash of
-the source and flags, and bound with `ctypes`; `build_all` compiles every
-source at once, one `nvcc` each.
+Both sources include one tiled accumulation routine,
+`csrc/xcorr_tile.cuh`; its note and each source's give the design and
+the bound on an H100. A source is compiled with `nvcc -gencode
+arch=compute_90a,code=sm_90a` into a shared library with a plain C
+interface at first use, into `usot_tpu_torch/_build/` (git-ignored)
+under a name keyed by a hash of the source, the headers beside it and
+the flags, and bound with `ctypes`; `build_all` compiles every source at
+once, one `nvcc` each.
 
 The wrappers take CUDA tensors only and raise on anything their kernel
 does not take; the plain versions for CPU tensors are in
@@ -41,6 +43,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_TAP = 8  # kMaxTap of csrc/xcorr_tile.cuh
 # entry point -> (source, number of pointer arguments after the dtype)
 _ENTRIES = {"usot_xcorr_groupdw": (SOURCE, 9),
             "usot_xcorr_depthwise_multi": (DEPTHWISE_SOURCE, 5),
@@ -72,9 +75,14 @@ def _nvcc() -> str:
 
 
 def library_path(source: Path = SOURCE) -> Path:
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{source.stem}_{digest}.so"
+    """Where `source` is built: the name is keyed by a hash of the source,
+    every header (`*.cuh`) beside it, which it may include, and the
+    flags, so that a change to any of them builds anew."""
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{source.stem}_{h.hexdigest()[:16]}.so"
 
 
 def _compile(sources) -> dict:
@@ -134,6 +142,15 @@ def _entry(name: str):
     return fn
 
 
+def _check_taps(name: str, kernels):
+    """The kernels keep a tap row in registers, so their taps are at most
+    MAX_TAP x MAX_TAP (`csrc/xcorr_tile.cuh`)."""
+    for k in kernels:
+        if k.dim() >= 3 and max(k.shape[-3], k.shape[-2]) > MAX_TAP:
+            raise ValueError(f"{name} takes kernels of at most {MAX_TAP} x "
+                             f"{MAX_TAP} taps, got {tuple(k.shape)}")
+
+
 def _check_tensors(name: str, tensors):
     """Device, type and contiguity checks shared by the wrappers."""
     dev, dtype = tensors[0].device, tensors[0].dtype
@@ -161,6 +178,7 @@ def _launch(name: str, dtype, pointers, dims, device):
 def _check_groupdw(xs, ks):
     if len(xs) != 3 or len(ks) != 3:
         raise ValueError("GroupDW takes 3 search maps and 3 kernel stacks")
+    _check_taps("xcorr_groupdw_cuda", ks)
     _check_tensors("xcorr_groupdw_cuda", [*xs, *ks])
     b, m, c = ks[0].shape[0], ks[0].shape[1], ks[0].shape[4]
     for x, k in zip(xs, ks):
@@ -195,6 +213,7 @@ def xcorr_groupdw_cuda(xs, ks):
 
 def _check_single(name: str, x, kernel, kernel_dim: int):
     """Shapes of a single-scale correlation; returns (B, C, Ho, Wo)."""
+    _check_taps(name, [kernel])
     _check_tensors(name, [x, kernel])
     if x.dim() != 4 or kernel.dim() != kernel_dim:
         raise ValueError(f"{name}: search map (B,H,W,C) and kernels of "

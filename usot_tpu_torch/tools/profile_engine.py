@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import time
 from collections import defaultdict
 
@@ -34,6 +35,9 @@ from usot_tpu_torch.tools.timing import card_line
 from usot_tpu_torch.tracker.config import TrackerConfig
 from usot_tpu_torch.tracker.engine import BatchScanEngine, synthetic_video
 from usot_tpu_torch.tracker.runner import ModelRunner
+
+# K1 is the 3-scale instantiation of the tiled kernel (csrc/xcorr_tile.cuh)
+K1_KERNEL = re.compile(r"xcorr_tile_kernel<[^>]*, 3>")
 
 
 def device_profile(run, n_steps: int) -> dict:
@@ -62,7 +66,7 @@ def device_profile(run, n_steps: int) -> dict:
         "device_idle_share": 1 - busy / wall if kernels else None,
         "kernels_per_step": len(kernels) / n,
         "k1_ms_per_step": sum(v for k, v in by_name.items()
-                              if "groupdw_kernel" in k) / n,
+                              if K1_KERNEL.search(k)) / n,
         "top_kernels_ms_per_step": [[k[:90], v / n] for k, v in top],
     }
 
