@@ -38,7 +38,20 @@ Phases, each of which raises on failure (exit code != 0):
      step; a ragged batch freezes its finished lanes exactly; lane 0's
      search features and head outputs against the same model on the CPU;
   8. scan engine: `ScanEngine` with the folded head on one video at
-     instance 271 (16-px box), 32 frames at chunk 16; the same checks.
+     instance 271 (16-px box), 32 frames at chunk 16; the same checks;
+  9. protocols, through the test CLI's functions (`usot_tpu_torch.cli.
+     test`) on in-memory 480x640 videos: the VOT restart protocol at B=8,
+     chunk 16 (8 videos of 40-64 frames; a same-chunk and a cross-chunk
+     restart and an instance-size spill forced by the ground truth), its
+     restart skeletons equal to `--engine scan`'s; lane refill (10 videos
+     of 8-80 frames on 4 lanes), every video covered, and a splice's
+     lanes held bitwise; `track_batch_roi` at `suggest_roi`'s size, and
+     in one-frame chunks of which at least the first is accepted,
+     against `track_batch` on the same B=8 1280x720 frames within
+     1e-2 px, with the bytes uploaded; `run_chunk(donate=False)` with
+     full rings bitwise non-mutating, and the cost of its ring copies at
+     B=8, 2048 frames; a frame step's time at B=8 and B=4. K1 launched
+     on each protocol.
 The line before the last is the `kernels` JSON object, the last
 {"ok": true, "device": {...}}. Without CUDA the script exits with an
 error and prints no result. It imports nothing of JAX.
@@ -50,6 +63,7 @@ import copy
 import json
 import os
 import re
+import shutil
 import statistics
 import sys
 import time
@@ -527,10 +541,11 @@ def batch_heads_vs_cpu(model, engine, state, frames, device, tol=1e-3):
         else f[:1].cpu() for i, f in enumerate(state)])
     with torch.inference_mode():
         _, xf_dev = engine._search(state, frames, engine._avg_b,
-                                   engine._im_hw_b)
+                                   engine._im_hw_b, engine._origin0)
         _, xf_cpu = cpu_engine._search(lane0, frames[:1].cpu(),
                                        engine._avg_b[:1].cpu(),
-                                       engine._im_hw_b[:1].cpu())
+                                       engine._im_hw_b[:1].cpu(),
+                                       cpu_engine._origin0)
         out_dev = [t[:1].cpu() for t in engine._heads(state, xf_dev)]
         out_same = cpu_engine._heads(lane0, xf_dev[:1].cpu())
         out_cpu = cpu_engine._heads(lane0, xf_cpu)
@@ -697,6 +712,381 @@ def run_scan_engine(model, device, n_frames=33, chunk=16, h=480, w=640,
     return rec, k1
 
 
+# -------------------------------------------------------------- protocols
+
+def _leaves(state):
+    out = []
+    for f in state:
+        out += _leaves(f) if isinstance(f, tuple) else [f]
+    return out
+
+
+def _clone(state):
+    """A copy of an engine state that shares no storage with it."""
+    if isinstance(state, torch.Tensor):
+        return state.clone()
+    items = [_clone(v) for v in state]
+    return type(state)(*items) if hasattr(state, "_fields") else tuple(items)
+
+
+def _protocol_video(n_frames, h, w, box, seed):
+    """A square drifting 2 px right and 1 px down per frame over a fixed
+    noise frame (made once, so long videos cost a copy per frame).
+    Returns (frames, centres)."""
+    rng = np.random.default_rng(seed)
+    base = (rng.random((h, w, 3)) * 255).astype(np.uint8)
+    x0, y0 = w // 4 + 7 * seed % 40, h // 3 + 5 * seed % 30
+    frames, centres = [], []
+    for f in range(n_frames):
+        im = base.copy()
+        cx, cy = x0 + 2 * f, y0 + f
+        im[cy - box // 2:cy + box // 2, cx - box // 2:cx + box // 2] = \
+            [200, 170, 60]
+        frames.append(im)
+        centres.append((cx, cy))
+    return frames, centres
+
+
+def _vot_dataset(lengths, h, w, box, chunk):
+    """In-memory VOT videos whose ground truth forces the restarts
+    (`tests/test_lockstep.py:154`): a full-frame box always overlaps, a
+    box off the canvas never does. Lane 0 fails early in the first chunk
+    and restarts in it (a replay), lane 1 fails near its end and
+    re-inits in the next chunk, lane 2 fails in the second chunk and
+    restarts on a box so small (< 0.4 % of the frame) that the instance
+    size flips (a spill). Random weights add failures of their own (the
+    boxes degenerate), on which both paths must agree as well. Frames
+    are arrays, which `read_image` passes."""
+    fails = {0: max(1, chunk // 2 - 5), 1: chunk - 4, 2: chunk + 4}
+    small = max(2, int(np.sqrt(0.003 * h * w)))
+    dataset = {}
+    for v, n in enumerate(lengths):
+        frames, centres = _protocol_video(n, h, w, box, seed=v)
+        fail = fails.get(v)
+        gt = []
+        for f, (cx, cy) in enumerate(centres):
+            if f == 0 or (fail is not None and f == fail + 5):
+                b = small if v == 2 and f else box
+                gt.append([cx - b / 2, cy - b / 2, b, b])
+            elif f == fail:
+                gt.append([w + 50.0, h + 50.0, 20.0, 20.0])
+            else:
+                gt.append([0.0, 0.0, float(w), float(h)])
+        name = f"vot{v}"
+        dataset[name] = dict(name=name, image_files=frames,
+                             gt=np.asarray(gt))
+    return dataset
+
+
+def _result_kinds(path):
+    with open(path) as f:
+        return ["bbox" if "," in ln else ln.strip() for ln in f]
+
+
+def _splice_check(engine, runner, videos, h, w, box, device):
+    """After a chunk, splice fresh videos into lanes 1 and 3 with one
+    `splice_lanes` and a fresh video into lane 2 with `splice_lane`:
+    each spliced lane's carry equals the lane state bitwise, the other
+    lanes and the rest of the rings are bitwise untouched."""
+    state = engine.init_batch(videos, runner)
+    frames = np.stack([np.stack(_protocol_video(engine.chunk + 1, h, w, box,
+                                                seed=20)[0][1:])]
+                      * engine.batch)
+    state, *_ = engine.track_batch(state, frames,
+                                   np.full(engine.batch, engine.chunk))
+    before = _leaves(_clone(state))
+    fresh = [(f[0], np.array(c[0], float), np.array([box, box], float))
+             for f, c in (_protocol_video(1, h, w, box, seed=s)
+                          for s in (31, 32, 33))]
+    many = engine.make_lane_states(fresh[:2], runner)
+    one = engine.make_lane_state(*fresh[2], runner)
+    state = engine.splice_lanes(state, [1, 3], many)
+    state = engine.splice_lane(state, 2, one)
+    check(all(torch.equal(a[0], b[0])
+              for a, b in zip(_leaves(state), before)),
+          "splice: lane 0 changed")
+    rings_before = before[11:14]
+    for lane, src, i in ((1, many, 0), (3, many, 1), (2, one, 0)):
+        pos, sz = ((src["pos"][i], src["sz"][i]) if src is many
+                   else (src["pos"], src["sz"]))
+        pairs = [(state.pos[lane], torch.as_tensor(pos, device=device)),
+                 (state.sz[lane], torch.as_tensor(sz, device=device))]
+        pairs += [(t[lane, 0], v[i]) for ts, vs in
+                  zip(state.zf_enc, src["zf_enc"]) for t, v in zip(ts, vs)]
+        pairs += [(t[lane], f[2 * i:2 * i + 2])
+                  for t, f in zip(state.init_enc, src["feat_enc"])]
+        pairs += [(r[lane, 0], f[2 * i])
+                  for r, f in zip(state.mem_enc, src["feat_enc"])]
+        check(all(torch.equal(a, b) for a, b in pairs),
+              f"splice: lane {lane} differs from its lane state")
+        check(all(torch.equal(r[lane, 1:], b[lane, 1:])
+                  for r, b in zip(state.mem_enc, rings_before)),
+              f"splice: lane {lane}'s stale ring slots changed")
+        check(float(state.mem_conf[lane, 0]) == np.float32(0.9)
+              and int(state.mem_idx[lane, 0]) == 0
+              and bool((state.mem_idx[lane, 1:] == -1).all())
+              and int(state.mem_len[lane]) == 1,
+              f"splice: lane {lane}'s ring bookkeeping not reset")
+    return state
+
+
+def _donate_check(engine, runner, videos, h, w, box):
+    """run_chunk(donate=False) once every ring is full: the passed state
+    is bitwise unchanged and a replay from it gives bitwise the same
+    outputs. Returns the chunks run before the checked one."""
+    state = engine.init_batch(videos, runner)
+    n = 3 * engine.chunk
+    lanes = np.stack([np.stack(_protocol_video(n + 1, h, w, box, seed=40)
+                               [0][1:])] * engine.batch)
+    staged = engine.stage_frames(lanes, np.full(engine.batch, n))
+    for _, block, valid in staged[:-1]:
+        state, _ = engine.run_chunk(state, block, valid)
+    check(int(state.mem_len.min()) > engine.max_frames,
+          f"donate check: rings not full ({state.mem_len.tolist()})")
+    _, block, valid = staged[-1]
+    before = _leaves(_clone(state))
+    out_state, outs = engine.run_chunk(state, block, valid, donate=False)
+    check(all(torch.equal(a, b) for a, b in zip(_leaves(state), before)),
+          "donate=False changed the state it was passed")
+    again, outs2 = engine.run_chunk(state, block, valid, donate=False)
+    check(all(torch.equal(a, b) for a, b in zip(outs, outs2))
+          and all(torch.equal(a, b) for a, b in zip(_leaves(again),
+                                                    _leaves(out_state))),
+          "a replay from the kept state differs")
+    return len(staged) - 1
+
+
+def _ring_copy(engine, state, device):
+    """Bytes of one lane's three rings, and the device ms of the ring
+    copies `run_chunk(donate=False)` makes (median of 5; CUDA only)."""
+    lane_bytes = sum(r[0].numel() * r.element_size() for r in state.mem_enc)
+    if device.type != "cuda":
+        return lane_bytes, None
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        copies = [r.clone() for r in state.mem_enc]
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        del copies
+    return lane_bytes, statistics.median(times)
+
+
+def run_protocols(model, device, h=480, w=640, box=60, vot_lanes=8,
+                  vot_lengths=(40, 64), chunk=16, refill_lanes=4,
+                  refill_lengths=(8, 80), refill_videos=10, roi_lanes=8,
+                  roi_frames=64, roi_hw=(720, 1280), roi_accept_frames=8,
+                  donate_max_frames=8, out_dir=OUT_DIR, card=""):
+    """Phase 9: the test CLI's benchmark protocols on the batch engine at
+    full width, through the entry points a user calls:
+    * VOT restart: `track_dataset_vot_batched` on in-memory VOT videos
+      (same-chunk and cross-chunk restarts, a spill), its restart
+      skeletons against `--engine scan`'s (`track_video_scan`);
+    * lane refill: `track_dataset_batched` with refill, every video
+      covered, refills counted; a splice's lanes held bitwise;
+    * ROI: `track_batch_roi` at `suggest_roi`'s size against
+      `track_batch` on the same frames within 1e-2 px, bytes uploaded
+      per chunk. On 1280x720 frames (`roi_hw`), where the suggested
+      window is a fifth of a frame. Random weights throw a lane tens of
+      px a frame in no steady direction, which a 16-frame window does
+      not follow: the first chunk may replay on full frames and the run
+      go on full frames. So the
+      same lanes also run `roi_accept_frames` one-frame chunks, whose
+      first is accepted by construction: crops at a non-zero origin held
+      against full frames (accepted chunks read the full-frame crop's
+      taps and weights, so the error is 0.0 unless a kernel is not
+      deterministic; steady-state byte savings are held on the trained
+      fixture by the CPU tests);
+    * `run_chunk(donate=False)` with full rings, and the cost of its
+      ring copies at the VOT engine's size.
+    K1 launches are counted per protocol (the counts set to 0 just
+    before each and read just after). Returns (record, K1 launches)."""
+    from usot_tpu_torch.cli import test as cli
+    from usot_tpu_torch.tracker.engine import BatchScanEngine
+    from usot_tpu_torch.tracker.runner import ModelRunner
+
+    runner = ModelRunner(model, device=device)
+    root = os.path.join(out_dir, "protocols")
+    shutil.rmtree(root, ignore_errors=True)
+    k1 = {}
+    rec = {"card": card}
+
+    # -- VOT restart, lockstep against the scan engine
+    lo, hi = vot_lengths
+    lengths = [lo + (hi - lo) * v // max(vot_lanes - 1, 1)
+               for v in range(vot_lanes)]
+    vot = _vot_dataset(lengths, h, w, box, chunk)
+    common = ["--dataset", "VOT2018", "--chunk", str(chunk), "--batch",
+              str(vot_lanes)]
+    args = cli.parse_args(common + ["--result_dir",
+                                    os.path.join(root, "batch")])
+    reset_launch_counts()  # the VOT protocol's path starts here
+    (group,) = cli.track_dataset_vot_batched(model, runner, vot, args)
+    k1["vot"] = launch_counts()["K1"]  # read just after the path
+    scan_args = cli.parse_args(common + ["--result_dir",
+                                         os.path.join(root, "scan")])
+    engines = {}
+    for name in vot:
+        cli.track_video_scan(model, runner, vot[name], scan_args, engines)
+    skeletons = {}
+    for name in vot:
+        rel = os.path.join("VOT2018", "USOT", "baseline", name,
+                           name + "_001.txt")
+        ours = _result_kinds(os.path.join(root, "batch", rel))
+        want = _result_kinds(os.path.join(root, "scan", rel))
+        check(ours == want, f"VOT {name}: lockstep rows {ours} != scan "
+              f"rows {want}")
+        skeletons[name] = "".join("b" if k == "bbox" else k for k in ours)
+    check(group["replays"] >= 1 and group["spills"] == 1,
+          f"VOT group: {group['replays']} replays, {group['spills']} "
+          "spills (expected >= 1 and 1)")
+    rec["vot"] = {**group, "skeletons": skeletons, "k1_launches": k1["vot"]}
+
+    # -- lane refill, and one splice held bitwise
+    lo, hi = refill_lengths
+    refill = {}
+    for v in range(refill_videos):
+        n = lo + (hi - lo) * v // max(refill_videos - 1, 1)
+        frames, centres = _protocol_video(n, h, w, box, seed=50 + v)
+        refill[f"r{v}"] = dict(
+            name=f"r{v}", image_files=frames,
+            gt=np.asarray([[centres[0][0] - box / 2,
+                            centres[0][1] - box / 2, box, box]] * n))
+    args = cli.parse_args(["--dataset", "OTB2015", "--engine", "batch",
+                           "--refill", "1", "--chunk", str(chunk),
+                           "--batch", str(refill_lanes), "--result_dir",
+                           os.path.join(root, "refill")])
+    reset_launch_counts()  # the refill protocol's path starts here
+    (group,) = cli.track_dataset_batched(model, runner, refill, args)
+    k1["refill"] = launch_counts()["K1"]  # read just after the path
+    check(group["refills"] >= refill_videos - refill_lanes,
+          f"refill: {group['refills']} refills")
+    for name, video in refill.items():
+        with open(os.path.join(root, "refill", "OTB2015", "USOT",
+                               name + ".txt")) as f:
+            rows = f.read().split()
+        check(len(rows) == len(video["image_files"]),
+              f"refill: {name} has {len(rows)} rows")
+    p = _tracker_config("small")
+    init = [(f[0], np.array(c[0], float), np.array([box, box], float))
+            for f, c in (_protocol_video(1, h, w, box, seed=s)
+                         for s in range(4))]
+    engine = BatchScanEngine(model, p, canvas_h=h, canvas_w=w, batch=4,
+                             max_frames=64, chunk=4, device=device)
+    _splice_check(engine, runner, init, h, w, box, device)
+    rec["refill"] = {**group, "k1_launches": k1["refill"],
+                     "splice_bitwise": True}
+
+    # -- ROI streaming against full frames
+    rh, rw = roi_hw
+    lanes = [_protocol_video(roi_frames + 1, rh, rw, box, seed=60 + v)
+             for v in range(roi_lanes)]
+    videos = [(f[0], np.array(c[0], float), np.array([box, box], float))
+              for f, c in lanes]
+    frames = np.stack([np.stack(f[1:]) for f, _ in lanes])
+    n_valid = np.full(roi_lanes, roi_frames)
+    engine = BatchScanEngine(model, p, canvas_h=rh, canvas_w=rw,
+                             batch=roi_lanes, max_frames=roi_frames + 8,
+                             chunk=chunk, device=device)
+    _, pos_f, sz_f, _ = engine.track_batch(engine.init_batch(videos, runner),
+                                           frames, n_valid)
+    state = engine.init_batch(videos, runner)
+    state_1 = _clone(state)  # a replay consumes the state it starts from
+    roi = engine.suggest_roi(state)
+    roi_1 = engine.suggest_roi(state, chunk=1)
+    engine.warm_roi(state, roi)
+    engine.warm_roi(state, roi_1, chunk=1)
+    telemetry = ("roi_accepted", "roi_replays", "roi_chunks",
+                 "roi_escalations", "roi_final", "roi_fallback",
+                 "roi_bytes_sent", "roi_bytes_full_equiv")
+
+    def held(pos, sz, k):
+        err = float(max(np.abs(pos - pos_f[:, :k]).max(),
+                        np.abs(sz - sz_f[:, :k]).max()))
+        check(err <= 1e-2, f"ROI against full frames: {err} px > 1e-2")
+        return err
+
+    reset_launch_counts()  # the ROI path starts here
+    t0 = time.perf_counter()
+    _, pos_r, sz_r, _ = engine.track_batch_roi(state, frames, n_valid,
+                                               roi=roi)
+    roi_s = time.perf_counter() - t0
+    run = {k: getattr(engine, k) for k in telemetry}
+    # one-frame chunks from the init state: the first one's anchor is
+    # the init position and `suggest_roi(chunk=1)` holds its window, so
+    # it is accepted whatever the weights do, and its crop runs at a
+    # non-zero origin
+    _, pos_1, sz_1, _ = engine.track_batch_roi(
+        state_1, frames[:, :roi_accept_frames],
+        np.full(roi_lanes, roi_accept_frames), roi=roi_1, chunk=1)
+    k1["roi"] = launch_counts()["K1"]  # read just after the path
+    err = held(pos_r, sz_r, roi_frames)
+    err_1 = held(pos_1, sz_1, roi_accept_frames)
+    check(engine.roi_accepted >= 1,
+          f"one-frame ROI chunks: none accepted "
+          f"({engine.roi_chunks} dispatched)")
+    full_chunk = roi_lanes * chunk * rh * rw * 3
+    rec["roi"] = {
+        "lanes": roi_lanes, "canvas": [rh, rw], "frames": int(n_valid.sum()),
+        "chunk": chunk,
+        "suggested_roi": roi, "max_abs_err_px": err, "seconds": roi_s,
+        "fps": int(n_valid.sum()) / roi_s, "k1_launches": k1["roi"],
+        **run,
+        "roi_bytes_per_chunk": roi_lanes * chunk * roi * roi * 3,
+        "full_bytes_per_chunk": full_chunk,
+        "one_frame_chunks": {
+            "frames": roi_accept_frames, "suggested_roi": roi_1,
+            "max_abs_err_px": err_1,
+            **{k: getattr(engine, k) for k in telemetry}}}
+
+    # -- donate=False with full rings; the ring copy at the VOT size
+    engine = BatchScanEngine(model, p, canvas_h=h, canvas_w=w,
+                             batch=vot_lanes, max_frames=donate_max_frames,
+                             chunk=max(4, donate_max_frames // 2),
+                             device=device)
+    _donate_check(engine, runner, videos[:1] * vot_lanes, h, w, box)
+    engine = BatchScanEngine(model, p, canvas_h=h, canvas_w=w,
+                             batch=vot_lanes, max_frames=2048, chunk=chunk,
+                             device=device)
+    lane_bytes, copy_ms = _ring_copy(
+        engine, engine.init_batch(videos[:1] * vot_lanes, runner), device)
+    rec["donate"] = {"bitwise": True, "max_frames": donate_max_frames,
+                     "ring_bytes_per_lane_at_2048": lane_bytes,
+                     "ring_copy_ms_b8_2048": copy_ms}
+    del engine
+
+    # -- what a frame step costs at the protocols' batches (staged chunk,
+    # after a warm one): the floor under their frames/s
+    rec["step_ms"] = {}
+    for b in sorted({vot_lanes, refill_lanes}):
+        engine = BatchScanEngine(model, p, canvas_h=h, canvas_w=w, batch=b,
+                                 max_frames=4 * chunk, chunk=chunk,
+                                 device=device)
+        state = engine.init_batch(videos[:1] * b, runner)
+        staged = engine.stage_frames(
+            np.stack([np.stack(_protocol_video(2 * chunk + 1, h, w, box,
+                                               seed=70)[0][1:])] * b),
+            np.full(b, 2 * chunk))
+        state, outs = engine.run_chunk(state, *staged[0][1:])
+        outs[0].cpu()
+        t0 = time.perf_counter()
+        state, outs = engine.run_chunk(state, *staged[1][1:])
+        outs[0].cpu()
+        rec["step_ms"][f"B={b}"] = (time.perf_counter() - t0) / chunk * 1e3
+    del engine
+
+    total = sum(k1.values())
+    if device.type == "cuda":
+        check(all(n > 0 for n in k1.values()),
+              f"protocols: K1 not launched on every path {k1}")
+    rec["k1_launches"] = dict(k1, total=total)
+    print(json.dumps(rec), flush=True)
+    return rec, total
+
+
 # ------------------------------------------------------------------- main
 
 def ptxas_report(built):
@@ -764,13 +1154,14 @@ def main() -> int:
     tool_records, tool_counts = run_tools()
     batch_rec, batch_k1 = run_batch_engine(model, device, card=card)
     scan_rec, scan_k1 = run_scan_engine(model, device, card=card)
+    proto_rec, proto_k1 = run_protocols(model, device, card=card)
 
     def pick(records, tag, shape):
         return next(r for r in records
                     if r.get("kernel", "K1") == tag and r["shape"] == shape)
 
     k1_paths = {"parity_slice": slice_k1, "batch_engine": batch_k1,
-                "scan_engine": scan_k1}
+                "scan_engine": scan_k1, "protocols": proto_k1}
     kernels = [
         kernel_line("K1", pick(k1_records, "K1",
                                "engine, instance 255, B=32, M=7, C=256, f32"),
@@ -790,7 +1181,7 @@ def main() -> int:
                "k1_shapes": k1_records, "k2_k3_shapes": single_records,
                "slice": [r for r, _ in results], "gpu_vs_cpu": errs,
                "tools": tool_records, "batch_engine": batch_rec,
-               "scan_engine": scan_rec,
+               "scan_engine": scan_rec, "protocols": proto_rec,
                "seconds": time.perf_counter() - t_start}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

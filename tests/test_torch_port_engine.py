@@ -100,6 +100,31 @@ def test_device_crop_matches_jax(impl):
         np.testing.assert_allclose(out, want, atol=3e-5, rtol=0)
 
 
+def test_roi_crop_is_the_full_frame_crop():
+    """The crop of an ROI window at its origin against the crop of the
+    full frame: bitwise equal. Lanes 0 and 3 have window corners that
+    round half to even (79.5 -> 80, 63.5 -> 64) and odd origins, where
+    a window-relative corner (48.5 -> 48, 44.5 -> 44) would be a pixel
+    off; lane 1 has an even origin, lane 2 a fractional position."""
+    rng = np.random.default_rng(7)
+    b, h, w, roi, s = 4, 200, 260, 150, 64
+    frames = rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8)
+    pos_x = _t(np.array([120.0, 121.0, 130.37, 99.5], np.float32))
+    pos_y = _t(np.array([100.0, 101.0, 88.81, 110.5], np.float32))
+    size = _t(np.array([80.0, 80.0, 61.0, 71.0], np.float32))
+    origin = np.array([[31, 47], [32, 46], [45, 17], [19, 33]])
+    avg = _t(rng.uniform(0, 255, (b, 3)).astype(np.float32))
+    windows = np.stack([frames[v, oy:oy + roi, ox:ox + roi]
+                        for v, (ox, oy) in enumerate(origin)])
+    full = subwindow_gather(_t(frames), pos_x, pos_y, size, avg, s)
+    part = subwindow_gather(
+        _t(windows), pos_x, pos_y, size, avg, s,
+        valid_h=_t(np.minimum(h - origin[:, 1], roi).astype(np.float32)),
+        valid_w=_t(np.minimum(w - origin[:, 0], roi).astype(np.float32)),
+        origin=_t(origin.astype(np.float32)))
+    np.testing.assert_array_equal(part.numpy(), full.numpy())
+
+
 def test_matmul_crop_ignores_tf32_flag():
     """The matmul crop switches TF32 off for itself and restores the
     global flag afterwards."""

@@ -67,10 +67,13 @@ def test_no_source_file_names_jax():
             assert not any(_forbidden(n) for n in names), (path, names)
 
 
-def test_entry_points_raise_without_a_gpu():
+def test_entry_points_raise_without_a_gpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour on a machine without CUDA")
+    from usot_tpu_torch.cli import test as cli
     from usot_tpu_torch.models.usot import build_usot, init_model
+    from usot_tpu_torch.tracker.config import TrackerConfig
+    from usot_tpu_torch.tracker.engine import BatchScanEngine
     from usot_tpu_torch.tracker.runner import ModelRunner
 
     model = build_usot(width=4, channels=8)
@@ -80,6 +83,54 @@ def test_entry_points_raise_without_a_gpu():
         ModelRunner(model)
     init_model(model, device="cpu")
     assert ModelRunner(model, device="cpu").device.type == "cpu"
+    # the test CLI, before it reads a checkpoint or a dataset
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["--dataset", "OTB2015", "--dataset_root",
+                  str(tmp_path / "none"), "--result_dir", str(tmp_path)])
+    assert not any(tmp_path.iterdir())
+    # the engine the lockstep protocols and the lane surgery run on
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BatchScanEngine(model, TrackerConfig(), 64, 64, batch=2)
+    engine = BatchScanEngine(model, TrackerConfig(), 64, 64, batch=2,
+                             device="cpu")
+    assert engine._origin0.device.type == "cpu"
+
+
+def test_only_imageio_touches_an_image_library():
+    """Frame decoding is `data/imageio.py`'s alone: no other module of
+    the port imports OpenCV or Pillow (the GPU machine has neither), and
+    importing the port loads neither."""
+    for dirpath, _, files in os.walk(PORT):
+        for f in files:
+            path = os.path.join(dirpath, f)
+            if not f.endswith(".py") or path.endswith(
+                    os.path.join("data", "imageio.py")):
+                continue
+            with open(path) as fh:
+                tree = ast.parse(fh.read(), path)
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom):
+                    names = [node.module or ""]
+                else:
+                    continue
+                assert not any(n.split(".")[0] in ("cv2", "PIL")
+                               for n in names), (path, names)
+    script = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        import usot_tpu_torch
+        for m in pkgutil.walk_packages(usot_tpu_torch.__path__,
+                                       "usot_tpu_torch."):
+            importlib.import_module(m.name)
+        print(sorted(n for n in sys.modules if n.split(".")[0] in
+                     ("cv2", "PIL")))
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300,
+                          check=True)
+    assert proc.stdout.split() == ["[]"]
 
 
 def test_groupdw_kernel_source_is_for_hopper():

@@ -175,6 +175,37 @@ def test_engines_run_at_small_width():
     assert launches == 0 and rec["frames"] == 8
 
 
+def test_protocols_run_at_small_width(tmp_path):
+    """Phase 9 at 320x320 (ROI on 448x512) and small batches: the VOT
+    group restarts in its first chunk (a replay), re-inits across a
+    chunk and spills one video, its rows equal the scan path's; refill
+    covers every video; the splice and donate=False checks hold bitwise;
+    ROI chunks agree with full frames."""
+    model = chip_smoke.build_model(CPU, width=8, channels=32, n_iter=1)
+    rec, launches = chip_smoke.run_protocols(
+        model, CPU, h=320, w=320, box=48, vot_lanes=3, vot_lengths=(20, 24),
+        chunk=8, refill_lanes=2, refill_lengths=(3, 12), refill_videos=4,
+        roi_lanes=2, roi_frames=8, roi_hw=(448, 512),
+        out_dir=str(tmp_path))
+    assert launches == 0 and rec["k1_launches"] == {
+        "vot": 0, "refill": 0, "roi": 0, "total": 0}
+    vot = rec["vot"]
+    assert vot["videos"] == 3 and vot["spills"] == 1 and vot["replays"] >= 1
+    assert vot["skeletons"]["vot0"].startswith("1200001b")
+    assert vot["skeletons"]["vot1"][:10] == "1bbb200001"
+    assert vot["skeletons"]["vot2"][12:18] == "200001"
+    assert rec["refill"]["refills"] == 2 and rec["refill"]["videos"] == 4
+    roi = rec["roi"]
+    assert roi["max_abs_err_px"] <= 1e-2 and roi["roi_chunks"] >= 1
+    assert roi["suggested_roi"] < 448 and not roi["roi_fallback"]
+    assert roi["roi_accepted"] > roi["roi_replays"]
+    one = roi["one_frame_chunks"]
+    assert one["max_abs_err_px"] <= 1e-2 and one["roi_accepted"] >= 1
+    assert rec["donate"]["ring_copy_ms_b8_2048"] is None
+    assert rec["donate"]["ring_bytes_per_lane_at_2048"] \
+        == 2049 * 55 * 32 * 4
+
+
 def test_slice_runs_at_small_width():
     model, results, launches = chip_smoke.run_slice(
         CPU, width=8, channels=32, n_frames=3, n_iter=1)
@@ -278,3 +309,27 @@ def test_engine_chunk_makes_no_host_sync_on_gpu():
     assert chip_smoke.launch_counts()["K1"] == 3 * 4
     assert state.mem_len.tolist() == [5, 4]
     assert bool(torch.isfinite(outs[0]).all())
+
+
+@pytest.mark.gpu
+def test_protocols_launch_k1_on_gpu(tmp_path):
+    """Phase 9 on the card at small width: each protocol's path launches
+    K1, three times per frame step of its chunks; ROI chunks cropped at
+    a non-zero origin are accepted and agree with full frames."""
+    cuda = _cuda()
+    model = chip_smoke.build_model(cuda, width=8, channels=32, n_iter=2)
+    rec, launches = chip_smoke.run_protocols(
+        model, cuda, h=320, w=320, box=48, vot_lanes=3, vot_lengths=(20, 24),
+        chunk=8, refill_lanes=2, refill_lengths=(3, 12), refill_videos=4,
+        roi_lanes=2, roi_frames=8, roi_hw=(448, 512),
+        out_dir=str(tmp_path))
+    k1 = rec["k1_launches"]
+    assert all(k1[k] > 0 and k1[k] % 3 == 0 for k in ("vot", "refill",
+                                                       "roi"))
+    assert launches == k1["total"]
+    assert rec["donate"]["ring_copy_ms_b8_2048"] > 0
+    roi, one = rec["roi"], rec["roi"]["one_frame_chunks"]
+    assert roi["max_abs_err_px"] <= 1e-2 and one["max_abs_err_px"] <= 1e-2
+    assert one["roi_accepted"] >= 1
+    assert roi["roi_accepted"] > roi["roi_replays"] \
+        and not roi["roi_fallback"]

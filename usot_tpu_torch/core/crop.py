@@ -143,18 +143,29 @@ def _extent(valid, size: int, like):
 
 
 def subwindow_gather(frames, pos_x, pos_y, original_sz, avg_chans,
-                     model_sz: int, valid_h=None, valid_w=None):
+                     model_sz: int, valid_h=None, valid_w=None,
+                     origin=None):
     """Bilinear gather crop of one window per lane (counterpart of
     `usot_tpu.core.crop.subwindow_jax`, which JAX vmaps over lanes).
 
     frames: (B, H, W, C) uint8 or float; pos_x, pos_y, original_sz: (B,)
     f32; avg_chans: (B, C); valid_h/valid_w: optional (B,) valid extent
     of each lane's canvas (taps outside it read avg_chans).
+    origin: optional (B, 2) integer [x, y] image coordinates of each
+    lane's buffer's top-left (an ROI window). The tap coordinates are
+    computed in image coordinates and the origin is subtracted after,
+    which is exact: taps inside the buffer get bitwise the weights of a
+    full-frame crop. (Subtracting it from pos first, as JAX does, rounds
+    the window's corner differently, by a pixel where it rounds half to
+    even across an odd origin.)
     Returns (B, model_sz, model_sz, C) f32. Geometry matches
     `get_subwindow`: the window is [cxt_min, cxt_min + round(sz) - 1]
     with cxt_min = round(pos - (sz + 1) / 2)."""
     b, h, w, c = frames.shape
     src_x, src_y = _window(pos_x, pos_y, original_sz, model_sz)
+    if origin is not None:
+        src_x = src_x - origin[:, 0:1]
+        src_y = src_y - origin[:, 1:2]
     vh = _extent(valid_h, h, pos_x)[:, None]
     vw = _extent(valid_w, w, pos_x)[:, None]
 

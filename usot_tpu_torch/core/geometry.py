@@ -52,3 +52,48 @@ def python2round(f: float) -> float:
     if round(f + 1) - round(f) != 1:
         return f + abs(f) / f * 0.5
     return round(f)
+
+
+def cxy_wh_2_rect(pos, sz):
+    """Center+size -> 0-indexed [x, y, w, h] rect."""
+    return np.array(
+        [pos[0] - sz[0] / 2, pos[1] - sz[1] / 2, sz[0], sz[1]], dtype=np.float64
+    )
+
+
+def rect_2_cxy_wh(rect):
+    return (
+        np.array([rect[0] + rect[2] / 2, rect[1] + rect[3] / 2]),
+        np.array([rect[2], rect[3]]),
+    )
+
+
+def get_axis_aligned_bbox(region):
+    """VOT polygon (8 numbers) or rect (4) -> axis-aligned (cx, cy, w, h).
+
+    Area-preserving scaling of the polygon bound (ref: lib/utils/test_utils.py:10-32).
+    """
+    region = np.asarray(region, dtype=np.float64)
+    nv = region.size
+    if nv == 8:
+        cx = np.mean(region[0::2])
+        cy = np.mean(region[1::2])
+        x1 = min(region[0::2])
+        x2 = max(region[0::2])
+        y1 = min(region[1::2])
+        y2 = max(region[1::2])
+        A1 = np.linalg.norm(region[0:2] - region[2:4]) * np.linalg.norm(
+            region[2:4] - region[4:6]
+        )
+        A2 = (x2 - x1) * (y2 - y1)
+        s = np.sqrt(A1 / A2)
+        w = s * (x2 - x1) + 1
+        h = s * (y2 - y1) + 1
+    else:
+        x = region[0]
+        y = region[1]
+        w = region[2]
+        h = region[3]
+        cx = x + w / 2
+        cy = y + h / 2
+    return cx, cy, w, h

@@ -5,6 +5,10 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+# A target under this share of the image gets the big search area
+# (ref: lib/tracker/usot_tracker.py:44-49).
+SMALL_TARGET_SHARE = 0.004
+
 
 @dataclass
 class TrackerConfig:
@@ -43,6 +47,12 @@ class TrackerConfig:
             (self.instance_size - self.exemplar_size) // self.total_stride
             + 1 + 8
         )
+
+    def instance_of(self, target_sz, im_h, im_w) -> int:
+        """The search size an init on a (w, h) target in an im_h x im_w
+        image picks: big_sz for a small target, else small_sz."""
+        share = (target_sz[0] * target_sz[1]) / float(im_h * im_w)
+        return self.big_sz if share < SMALL_TARGET_SHARE else self.small_sz
 
 
 def load_test_yaml(path: str) -> dict:

@@ -19,8 +19,13 @@ invalid (padding) frames. The ring tensors are written in place; the
 small bookkeeping fields are new tensors every frame, so
 `_freeze_invalid` can select between the old and the new values.
 
-Not carried over: `impl="vmap"`, `unroll`, `mesh`, `carry_dtype` (the
-port runs f32), ROI streaming and lane surgery (`engine.py:898-1443`).
+`BatchScanEngine` also carries the lane surgery the benchmark protocols
+of `tracker/lockstep.py` stand on (`run_chunk(donate=False)`,
+`make_lane_state(s)`, `splice_lane(s)`) and ROI streaming with its
+exactness replay (`track_batch_roi`; `engine.py:898-1443`).
+
+Not carried over: `impl="vmap"`, `unroll`, `mesh` and `carry_dtype` (the
+port runs f32).
 """
 from __future__ import annotations
 
@@ -38,6 +43,9 @@ from usot_tpu_torch.models.usot import USOTNet
 from usot_tpu_torch.tracker.config import TrackerConfig
 from usot_tpu_torch.tracker.postprocess import hanning_window
 from usot_tpu_torch.tracker.tracker import _clip_number, _flip_lr
+
+# px of slack around each crop window the ROI exactness check demands
+_ROI_MARGIN = 2.0
 
 
 class EngineState(NamedTuple):
@@ -310,13 +318,19 @@ class ScanEngine:
         self.fused = fold_inference_head(model.connect_model) \
             if fused_head else None
         self._consts = make_consts(p, self.device)
+        # the frame buffer's image-coordinate origin: (0, 0) for full
+        # frames (ROI streaming passes its windows' origins)
+        self._origin0 = torch.zeros((1, 2), device=self.device)
 
     # ---- one frame step, B lanes ----
 
-    def _search(self, carry: EngineState, frames, avg_b, im_hw_b):
+    def _search(self, carry: EngineState, frames, avg_b, im_hw_b, origin_b):
         """Crop and backbone of one frame step. frames: (B, H, W, 3)
         uint8 on the device; avg_b (B, 3); im_hw_b (B, 2) [h, w] valid
-        region of each lane's canvas. Returns (scale_z (B,), xf)."""
+        region of each lane's image; origin_b (B, 2) [x, y] image
+        coordinates of each lane's frame buffer's top-left (zero for full
+        frames, the window's origin for an ROI). Returns
+        (scale_z (B,), xf)."""
         p = self.p
         frame_h, frame_w = frames.shape[1], frames.shape[2]
         sz = carry.sz                                        # (B, 2)
@@ -326,11 +340,13 @@ class ScanEngine:
         scale_z = p.exemplar_size / s_z
         d_search = (p.instance_size - p.exemplar_size) / 2
         s_x = torch.round(s_z + 2 * d_search / scale_z)
-        vh = torch.clamp(im_hw_b[:, 0], max=float(frame_h))
-        vw = torch.clamp(im_hw_b[:, 1], max=float(frame_w))
+        # valid region of the buffer: the image minus the origin,
+        # clipped to the buffer (`usot_tpu/tracker/engine.py:708-712`)
+        vh = torch.clamp(im_hw_b[:, 0] - origin_b[:, 1], max=float(frame_h))
+        vw = torch.clamp(im_hw_b[:, 1] - origin_b[:, 0], max=float(frame_w))
         x_crop = subwindow_gather(frames, carry.pos[:, 0], carry.pos[:, 1],
                                   s_x, avg_b, p.instance_size, valid_h=vh,
-                                  valid_w=vw)
+                                  valid_w=vw, origin=origin_b)
 
         dtype = next(self.model.parameters()).dtype
         return scale_z, self.model.search_features(x_crop.to(dtype))
@@ -358,13 +374,14 @@ class ScanEngine:
         return cls, bbox, cls_mem
 
     def _frame_step_batched(self, carry: EngineState, frames, is_valid,
-                            avg_b, im_hw_b):
+                            avg_b, im_hw_b, origin_b):
         """Natively batched frame step (counterpart of
         `usot_tpu/tracker/engine.py:680-768`). is_valid: (B,) bool.
         Returns (new carry, (pos (B, 2), sz (B, 2), score (B,)))."""
         p = self.p
         model = self.model
-        scale_z, xf = self._search(carry, frames, avg_b, im_hw_b)
+        scale_z, xf = self._search(carry, frames, avg_b, im_hw_b,
+                                   origin_b)
         cls, bbox, cls_mem = self._heads(carry, xf)
         new_pos, new_sz, best_score, pool_bbox = _postprocess_traced(
             p, self._consts, carry.pos, carry.sz, scale_z, cls, bbox,
@@ -389,15 +406,17 @@ class ScanEngine:
         return new_carry, (new_pos, new_sz, best_score)
 
     @torch.inference_mode()
-    def _chunk(self, carry: EngineState, frames, valid, avg_b, im_hw_b):
+    def _chunk(self, carry: EngineState, frames, valid, avg_b, im_hw_b,
+               origin_b):
         """One chunk on the device: frames (T, B, H, W, 3) uint8, valid
-        (T, B) bool, both on the device. A Python loop over T that makes
-        no host synchronisation. Returns (carry, (pos (T, B, 2),
-        sz (T, B, 2), score (T, B))) with the outputs on the device."""
+        (T, B) bool, both on the device; origin_b (B, 2) as `_search`. A
+        Python loop over T that makes no host synchronisation. Returns
+        (carry, (pos (T, B, 2), sz (T, B, 2), score (T, B))) with the
+        outputs on the device."""
         outs = []
         for t in range(frames.shape[0]):
             new, out = self._frame_step_batched(carry, frames[t], valid[t],
-                                                avg_b, im_hw_b)
+                                                avg_b, im_hw_b, origin_b)
             carry = _freeze_invalid(new, carry, valid[t])
             outs.append(out)
         return carry, tuple(torch.stack(o) for o in zip(*outs))
@@ -502,7 +521,7 @@ class ScanEngine:
         (state, (pos (T, 2), sz (T, 2), score (T,))) on the device."""
         carry, outs = self._chunk(
             _lift(state), frames[:, None], valid[:, None], self._avg_b,
-            self._im_hw_b if im_hw_b is None else im_hw_b)
+            self._im_hw_b if im_hw_b is None else im_hw_b, self._origin0)
         return _drop(carry), tuple(o[:, 0] for o in outs)
 
     def iter_chunks(self, state: EngineState, frames_u8: np.ndarray,
@@ -553,6 +572,7 @@ class BatchScanEngine(ScanEngine):
         super().__init__(model, p, im_h=canvas_h, im_w=canvas_w,
                          max_frames=max_frames, chunk=chunk,
                          fused_head=fused_head, device=device)
+        self._origin0 = torch.zeros((batch, 2), device=self.device)
 
     @torch.inference_mode()
     def init_batch(self, videos, runner) -> EngineState:
@@ -588,6 +608,14 @@ class BatchScanEngine(ScanEngine):
         mem_idx[:, 0] = 0
         self._avg_b = self._f32(np.stack([h["avg"] for h in hosts]))
         self._im_hw_b = self._f32(hws)
+        # Floor of `suggest_roi`: the crop-window span at init. A tracker
+        # that loses its target collapses its size EMA, and an ROI sized
+        # from the collapsed span replays as soon as the window has to
+        # cover re-acquisition motion (`usot_tpu/tracker/engine.py:834-843`)
+        x0, x1, _, _ = self._crop_window(
+            np.stack([h["pos"] for h in hosts]).astype(np.float64),
+            np.stack([h["sz"] for h in hosts]).astype(np.float64))
+        self._init_span = float(np.max(x1 - x0))
         return EngineState(
             pos=self._f32(np.stack([h["pos"] for h in hosts])),
             sz=self._f32(np.stack([h["sz"] for h in hosts])),
@@ -620,12 +648,28 @@ class BatchScanEngine(ScanEngine):
         return (torch.from_numpy(block).to(self.device),
                 torch.from_numpy(np.asarray(valid, bool)).to(self.device))
 
-    def run_chunk(self, state: EngineState, block, valid):
+    def run_chunk(self, state: EngineState, block, valid,
+                  donate: bool = True):
         """One chunk on (T, B, H, W, 3) uint8 frames and (T, B) validity,
         both already on the device. Makes no host synchronisation.
-        Returns (state, (pos, sz, score)) with the outputs on the
-        device."""
-        return self._chunk(state, block, valid, self._avg_b, self._im_hw_b)
+        Returns (state, (pos, sz, score)) with the outputs on the device.
+
+        donate=True writes the memory rings of `state` in place: `state`
+        is consumed. donate=False runs the chunk on copies of the rings,
+        so `state` stays bitwise unchanged and shares no ring storage with
+        the state returned; a protocol can splice into it and replay the
+        chunk (the VOT restart path, `tracker/lockstep.py`). Without the
+        copies a replay would be wrong once a lane's ring is full: its
+        eviction overwrites a slot the old state still reads."""
+        return self._run(state, block, valid, self._origin0, donate)
+
+    @torch.inference_mode()
+    def _run(self, state: EngineState, block, valid, origin_b, donate):
+        if not donate:
+            state = state._replace(
+                mem_enc=tuple(r.clone() for r in state.mem_enc))
+        return self._chunk(state, block, valid, self._avg_b, self._im_hw_b,
+                           origin_b)
 
     @staticmethod
     def _collate(pending):
@@ -663,6 +707,382 @@ class BatchScanEngine(ScanEngine):
             state, outs = self.run_chunk(state, block, valid)
             pending.append((nb, outs))
         return (state,) + self._collate(pending)
+
+    # ---- lane surgery (the VOT restart protocol and lane refill) ----
+
+    @torch.inference_mode()
+    def make_lane_state(self, im, target_pos, target_sz, runner) -> dict:
+        """One video's init, as the pieces `splice_lane` writes into a
+        lane. Runs the B=1 model passes of `ScanEngine.init_state`, so a
+        restarted lane starts exactly where a fresh single-video engine
+        would (the reference restart re-enters tracker.init the same way,
+        ref: scripts/test_usot.py:98-103). zf_enc: (cls, reg) 3-tuples of
+        (1, h, w, C); feat_enc: 3-tuple of (2, h, w, C), the encoded
+        [bootstrap, flipped bootstrap]."""
+        h = self._init_host(im, target_pos, target_sz)
+        zf_enc = runner.encode_template(runner.template(h["z_crop"],
+                                                        h["tb"]))
+        feat0 = runner.extract_memory_feature(x_hwc=h["x_crop"],
+                                              search_bbox=h["sb0"])
+        feat1 = runner.extract_memory_feature(x_hwc=h["x_aug"],
+                                              search_bbox=h["sb1"])
+        return dict(
+            pos=np.asarray(h["pos"], np.float32),
+            sz=np.asarray(h["sz"], np.float32),
+            avg=np.asarray(h["avg"], np.float32),
+            im_hw=np.asarray([im.shape[0], im.shape[1]], np.float32),
+            zf_enc=zf_enc,
+            feat_enc=runner.encode_memory_kernels(torch.cat([feat0, feat1])))
+
+    @torch.inference_mode()
+    def make_lane_states(self, videos, runner) -> dict:
+        """`make_lane_state` for K <= B videos at once: host crops per
+        video, then ONE set of batched model passes at the engine's batch
+        (padded with copies of the first video), as `init_batch` runs
+        them. For lane refill, where several lanes end at one chunk
+        boundary. Numerics are the batched init's, not the B=1 passes'
+        (VOT restarts keep `make_lane_state`). Returns the stacked pieces
+        for `splice_lanes` (zf_enc (B, h, w, C), feat_enc (2B, h, w, C))
+        with their count under "k"."""
+        b, k = self.batch, len(videos)
+        if not 1 <= k <= b:
+            raise ValueError(f"{k} videos for a batch of {b}")
+        hosts = [self._init_host(im, pos, sz) for im, pos, sz in videos]
+        hws = [[im.shape[0], im.shape[1]] for im, _, _ in videos]
+        hosts += [hosts[0]] * (b - k)
+        hws += [hws[0]] * (b - k)
+        z = np.stack([h["z_crop"] for h in hosts])
+        tb = np.stack([h["tb"] for h in hosts])
+        xs = np.stack([h[key] for h in hosts for key in ("x_crop", "x_aug")])
+        sbs = np.stack([h[key] for h in hosts for key in ("sb0", "sb1")])
+        return dict(
+            k=k,
+            pos=np.stack([h["pos"] for h in hosts]).astype(np.float32),
+            sz=np.stack([h["sz"] for h in hosts]).astype(np.float32),
+            avg=np.stack([h["avg"] for h in hosts]).astype(np.float32),
+            im_hw=np.asarray(hws, np.float32),
+            zf_enc=runner.encode_template(runner.template_batch(z, tb)),
+            feat_enc=runner.encode_memory_kernels(
+                runner.extract_memory_feature_batch(xs, sbs)))
+
+    def splice_lane(self, state: EngineState, lane: int,
+                    lane_state: dict) -> EngineState:
+        """Overwrite one lane of a batched carry with a fresh video's
+        init (from `make_lane_state`) and set the engine's avg and
+        image-size rows of that lane. See `splice_lanes`."""
+        one = {key: lane_state[key][None]
+               for key in ("pos", "sz", "avg", "im_hw")}
+        return self._splice(state, [lane], {**lane_state, **one}, 1)
+
+    def splice_lanes(self, state: EngineState, lanes,
+                     lane_states: dict) -> EngineState:
+        """Splice K fresh videos (from `make_lane_states`) into lanes
+        `lanes` (K distinct ints) in one set of indexed writes, whatever
+        K: no per-lane launches, no host synchronisation.
+
+        The lanes' pos, sz, template and anchor encodings and ring
+        bookkeeping (confidence 0.9 and logical index 0 at slot 0,
+        length 1) come back as new tensors, and slot 0 of each ring is
+        written IN PLACE with the unflipped bootstrap: splice into a
+        state no other live state shares rings with (what `run_chunk`
+        returns). The rest of the lane's ring stays stale and is
+        unreachable: picks match slots by stored logical index. The other
+        lanes are untouched."""
+        k = lane_states["k"]
+        if len(lanes) != k:
+            raise ValueError(f"{len(lanes)} lanes for {k} lane states")
+        return self._splice(state, lanes, lane_states, k)
+
+    @torch.inference_mode()
+    def _splice(self, state: EngineState, lanes, ls: dict,
+                k: int) -> EngineState:
+        dev = self.device
+        idx = torch.as_tensor(np.asarray(lanes, np.int64), device=dev)
+        zero = torch.zeros_like(idx)
+
+        def put(t, v):
+            return t.index_put((idx,), v.to(dev, t.dtype))
+
+        for ring, f in zip(state.mem_enc, ls["feat_enc"]):
+            ring.index_put_((idx, zero), f[0:2 * k:2].to(ring.dtype))
+        conf = torch.zeros((k, self.max_frames), device=dev)
+        conf[:, 0] = 0.9
+        slots = torch.full((k, self.max_frames), -1, dtype=torch.int32,
+                           device=dev)
+        slots[:, 0] = 0
+        self._avg_b = put(self._avg_b, self._f32(ls["avg"][:k]))
+        self._im_hw_b = put(self._im_hw_b, self._f32(ls["im_hw"][:k]))
+        return EngineState(
+            pos=put(state.pos, self._f32(ls["pos"][:k])),
+            sz=put(state.sz, self._f32(ls["sz"][:k])),
+            zf_enc=tuple(tuple(put(t, v[:k, None]) for t, v in zip(ts, vs))
+                         for ts, vs in zip(state.zf_enc, ls["zf_enc"])),
+            init_enc=tuple(
+                put(t, torch.stack([f[0:2 * k:2], f[1:2 * k:2]], dim=1))
+                for t, f in zip(state.init_enc, ls["feat_enc"])),
+            mem_enc=state.mem_enc, mem_conf=put(state.mem_conf, conf),
+            mem_idx=put(state.mem_idx, slots),
+            mem_len=put(state.mem_len, torch.ones(k, dtype=torch.int32,
+                                                  device=dev)))
+
+    # ---- ROI streaming ----
+
+    def _crop_window(self, pos, sz):
+        """Host mirror, in f64, of the device crop geometry: the pixel
+        span [x0, x1], [y0, y1] the bilinear crop may tap for a frame
+        stepped from (pos, sz), both (B, 2); +1 past the window for the
+        second bilinear tap."""
+        p = self.p
+        wc = sz[:, 0] + p.context_amount * (sz[:, 0] + sz[:, 1])
+        hc = sz[:, 1] + p.context_amount * (sz[:, 0] + sz[:, 1])
+        s_z = np.sqrt(wc * hc)
+        scale_z = p.exemplar_size / s_z
+        d_search = (p.instance_size - p.exemplar_size) / 2
+        s_x = np.round(s_z + 2 * d_search / scale_z)
+        x0 = np.round(pos[:, 0] - (s_x + 1.0) / 2.0)
+        y0 = np.round(pos[:, 1] - (s_x + 1.0) / 2.0)
+        return x0, x0 + s_x, y0, y0 + s_x
+
+    def suggest_roi(self, state: EngineState, chunk: int = None) -> int:
+        """An ROI size for `track_batch_roi` with dispatches of `chunk`
+        frames (default `self.chunk`), from the state: the widest lane's
+        crop-window span (floored at its span at `init_batch`), grown by
+        1.2 for the size EMA, plus room for the target to drift 2 px per
+        frame over two chunks (the pipelined chunk's anchor is one chunk
+        stale), rounded up to 32 px. A wrong guess costs replays, never
+        exactness (`usot_tpu/tracker/engine.py:914-950` with its
+        defaults)."""
+        chunk = self.chunk if chunk is None else chunk
+        x0, x1, _, _ = self._crop_window(
+            state.pos.cpu().numpy().astype(np.float64),
+            state.sz.cpu().numpy().astype(np.float64))
+        s_x = max(float(np.max(x1 - x0)), getattr(self, "_init_span", 0.0))
+        need = s_x * 1.2 + 1 + 2 * (_ROI_MARGIN + 2.0 * chunk * 2)
+        return int(-(-need // 32) * 32)
+
+    def warm_roi(self, state: EngineState, roi: int, chunk: int = None):
+        """Run one all-invalid chunk of (roi x roi) frames through the
+        path `track_batch_roi` takes, outside any timed region, so the
+        first use of its shapes (cuDNN's choice of algorithms, the
+        kernels' loads) is not timed. The carry freezes on invalid frames
+        and the result is dropped: `state` is untouched."""
+        chunk = self.chunk if chunk is None else chunk
+        dummy = torch.zeros((chunk, self.batch, roi, roi, 3),
+                            dtype=torch.uint8, device=self.device)
+        novalid = torch.zeros((chunk, self.batch), dtype=torch.bool,
+                              device=self.device)
+        _, outs = self._run(state, dummy, novalid, self._origin0,
+                            donate=False)
+        outs[0].cpu()
+
+    @staticmethod
+    def _roi_slice(block, pos_h, roi):
+        """Cut (roi x roi) windows centred on pos_h (B, 2), clamped
+        inside the canvas, out of a (B, T, H, W, 3) uint8 block. Returns
+        ((T, B, roi, roi, 3) uint8, ox (B,), oy (B,)) with the windows'
+        origins in image coordinates."""
+        b, t, h, w = block.shape[:4]
+        ox = np.clip(np.round(pos_h[:, 0] - roi / 2), 0,
+                     np.maximum(w - roi, 0))
+        oy = np.clip(np.round(pos_h[:, 1] - roi / 2), 0,
+                     np.maximum(h - roi, 0))
+        roi_block = np.empty((t, b, roi, roi, 3), np.uint8)
+        for v in range(b):
+            xs, ys = int(ox[v]), int(oy[v])
+            roi_block[:, v] = block[v, :, ys:ys + roi, xs:xs + roi]
+        return roi_block, ox, oy
+
+    def _clipped_windows(self, pos_np, sz_np, pos_h, sz_h, nb):
+        """Each of the chunk's nb frames' crop windows [+_ROI_MARGIN] px,
+        clipped
+        to the true image (taps outside it read avg either way): frame t
+        is stepped from the state after frame t-1 (the chunk-start state
+        pos_h/sz_h for t=0). Yields (rx0, rx1, ry0, ry1), each (B,)."""
+        im_hw = self._im_hw_b.cpu().numpy()
+        prev_pos = np.concatenate([pos_h[None], pos_np[:nb - 1]])
+        prev_sz = np.concatenate([sz_h[None], sz_np[:nb - 1]])
+        for t in range(nb):
+            x0, x1, y0, y1 = self._crop_window(prev_pos[t], prev_sz[t])
+            yield (np.maximum(x0 - _ROI_MARGIN, 0),
+                   np.minimum(x1 + _ROI_MARGIN, im_hw[:, 1] - 1),
+                   np.maximum(y0 - _ROI_MARGIN, 0),
+                   np.minimum(y1 + _ROI_MARGIN, im_hw[:, 0] - 1))
+
+    def _roi_ok(self, pos_np, sz_np, pos_h, sz_h, ox, oy, roi, nb,
+                valid_np) -> bool:
+        """Exactness check of one returned chunk: every valid frame's
+        clipped window lies inside [origin, origin + roi)."""
+        for t, (rx0, rx1, ry0, ry1) in enumerate(self._clipped_windows(
+                pos_np, sz_np, pos_h, sz_h, nb)):
+            inside = (rx0 >= ox) & (rx1 <= ox + roi - 1) \
+                & (ry0 >= oy) & (ry1 <= oy + roi - 1)
+            if not (inside | ~valid_np[t]).all():
+                return False
+        return True
+
+    def _roi_needed(self, pos_np, sz_np, pos_h, sz_h, anchor, nb,
+                    valid_np) -> float:
+        """The least ROI, centred on the chunk's anchor, that holds every
+        clipped window of the chunk's true trajectory. The clamped
+        origin `_roi_slice` places covers at least as much of the canvas
+        as the centred one, so a failed `_roi_ok` means needed > roi and
+        escalating to `needed` converges in one replay."""
+        need = 0.0
+        for t, (rx0, rx1, ry0, ry1) in enumerate(self._clipped_windows(
+                pos_np, sz_np, pos_h, sz_h, nb)):
+            half = np.maximum.reduce(
+                [anchor[:, 0] - rx0, rx1 - anchor[:, 0],
+                 anchor[:, 1] - ry0, ry1 - anchor[:, 1]])
+            need = max(need, float(np.max(np.where(valid_np[t], half, 0.0))))
+        # +2: inclusive-span and np.round(origin) slack
+        return 2.0 * need + 2.0
+
+    def track_batch_roi(self, state: EngineState, frames_u8: np.ndarray,
+                        n_valid: np.ndarray, roi: int = 384,
+                        chunk: int = None):
+        """`track_batch` that uploads, per chunk, only a (roi x roi)
+        window of each lane around its last known position instead of
+        the canvas (`usot_tpu/tracker/engine.py:1034-1228`). Same
+        arguments and returns as `track_batch`.
+
+        Exactness is checked, not assumed: when a chunk's positions come
+        back, the host recomputes every frame's crop window from them in
+        f64 (`_crop_window`) and checks that it lies inside the window
+        uploaded; a chunk that fails is REPLAYED with full frames from
+        its input state, which `run_chunk(donate=False)` kept. Accepted
+        chunks read the same pixels with the same bilinear weights as
+        `track_batch` (the crop's taps are computed in image coordinates,
+        `subwindow_gather`'s origin), so their outputs are bitwise
+        `track_batch`'s where the model's kernels are deterministic.
+
+        The next chunk is dispatched before the current one is checked,
+        anchored at the last position the host knows (one chunk stale),
+        so the host's slice and upload overlap the device's chunk; a
+        failed chunk discards it. Every replay re-sizes the ROI from the
+        replayed trajectory (`_roi_needed`); when the ROI reaches 80 % of
+        a frame, or more than 40 % of 5+ chunks replayed, the rest of the
+        run goes to `track_batch`. chunk: frames per dispatch (default
+        `self.chunk`): the drift headroom, hence the ROI, grows with it.
+
+        Telemetry on the engine after a run: roi_accepted (ROI chunks
+        kept), roi_replays, roi_chunks (ROI dispatches, discarded
+        speculative ones included), roi_escalations, roi_final,
+        roi_fallback, roi_bytes_sent, roi_bytes_full_equiv."""
+        chunk = self.chunk if chunk is None else chunk
+        b, n = frames_u8.shape[:2]
+        if b != self.batch:
+            raise ValueError(f"{b} lanes for a batch of {self.batch}")
+        h_im, w_im = frames_u8.shape[2], frames_u8.shape[3]
+        n_valid = np.asarray(n_valid)
+        self.roi_accepted = 0
+        self.roi_replays = 0
+        self.roi_chunks = 0
+        self.roi_escalations = 0
+        self.roi_final = roi
+        self.roi_fallback = False
+        self.roi_bytes_sent = 0
+        self.roi_bytes_full_equiv = 0
+        if roi >= min(h_im, w_im):
+            self.roi_fallback = True
+            return self.track_batch(state, frames_u8, n_valid)
+        pos_h = state.pos.cpu().numpy().astype(np.float64)
+        sz_h = state.sz.cpu().numpy().astype(np.float64)
+        pending = {}          # chunk index -> (nb, outs on the device)
+        starts = list(range(0, n, chunk))
+
+        def prep(i):
+            block = frames_u8[:, i:i + chunk]
+            nb = block.shape[1]
+            if nb < chunk:
+                pad = np.repeat(block[:, -1:], chunk - nb, axis=1)
+                block = np.concatenate([block, pad], axis=1)
+            valid = np.arange(chunk)[:, None] + i < n_valid[None, :]
+            return block, nb, valid
+
+        def host_pos_sz(outs):
+            return [o.cpu().numpy().astype(np.float64) for o in outs[:2]]
+
+        def replay(rec):
+            """Full-frame replay of a failed chunk from its saved input
+            state, which it consumes."""
+            block_tb = np.ascontiguousarray(np.swapaxes(rec["block"], 0, 1))
+            st, outs = self._run(rec["state_in"],
+                                 *self._upload(block_tb, rec["valid"]),
+                                 self._origin0, donate=True)
+            self.roi_bytes_sent += block_tb.nbytes
+            return st, outs
+
+        def dispatch(j, anchor_pos, state_in, cur_roi):
+            block, nb, valid = prep(starts[j])
+            roi_block, ox, oy = self._roi_slice(block, anchor_pos, cur_roi)
+            st, outs = self._run(state_in, *self._upload(roi_block, valid),
+                                 self._f32(np.stack([ox, oy], -1)),
+                                 donate=False)
+            self.roi_chunks += 1
+            self.roi_bytes_sent += roi_block.nbytes
+            self.roi_bytes_full_equiv += b * chunk * h_im * w_im * 3
+            return dict(j=j, nb=nb, block=block, valid=valid, ox=ox, oy=oy,
+                        roi=cur_roi, state_in=state_in, state_out=st,
+                        outs=outs, anchor=np.asarray(anchor_pos, np.float64))
+
+        def hand_off(state, i_rest):
+            """The rest of the run on full frames (`track_batch`): ROI
+            streaming stopped paying for itself."""
+            self.roi_fallback = True
+            self.roi_final = min(h_im, w_im)
+            done = self._collate([pending[k] for k in sorted(pending)])
+            if i_rest >= n:
+                return (state,) + done
+            state, *rest = self.track_batch(
+                state, frames_u8[:, i_rest:],
+                np.clip(n_valid - i_rest, 0, n - i_rest))
+            return (state,) + tuple(np.concatenate([a, r], axis=1)
+                                    for a, r in zip(done, rest))
+
+        inflight = []
+        j = 0             # next chunk index to dispatch
+        while j < len(starts) or inflight:
+            while j < len(starts) and len(inflight) < 2:
+                # anchor: the last position the host knows (exact for the
+                # first chunk in flight, one chunk stale for the next)
+                st_in = inflight[-1]["state_out"] if inflight else state
+                inflight.append(dispatch(j, pos_h, st_in, roi))
+                j += 1
+            rec = inflight.pop(0)
+            nb = rec["nb"]
+            pos_np, sz_np = host_pos_sz(rec["outs"])
+            if self._roi_ok(pos_np, sz_np, pos_h, sz_h, rec["ox"],
+                            rec["oy"], rec["roi"], nb, rec["valid"]):
+                state = rec["state_out"]
+                pending[rec["j"]] = (nb, rec["outs"])
+                self.roi_accepted += 1
+            else:
+                # the speculative successor read a wrong carry: drop it
+                # and rewind the dispatch cursor
+                j = rec["j"] + 1
+                inflight.clear()
+                self.roi_replays += 1
+                state, outs = replay(rec)
+                pending[rec["j"]] = (nb, outs)
+                pos_np, sz_np = host_pos_sz(outs)
+                # pos_h/sz_h still hold the state entering rec, and
+                # rec its anchor: the size that would have held it
+                need = self._roi_needed(pos_np, sz_np, pos_h, sz_h,
+                                        rec["anchor"], nb, rec["valid"])
+                new_roi = int(-(-max(need, roi + 1.0) // 32) * 32)
+                if new_roi > roi:
+                    self.roi_escalations += 1
+                frac = self.roi_replays / max(self.roi_chunks, 1)
+                if (new_roi >= min(h_im, w_im)
+                        or new_roi * new_roi >= 0.8 * h_im * w_im
+                        or (self.roi_chunks >= 5 and frac > 0.4)):
+                    return hand_off(state, starts[j] if j < len(starts)
+                                    else n)
+                roi = new_roi
+                self.roi_final = roi
+            pos_h = pos_np[nb - 1]
+            sz_h = sz_np[nb - 1]
+        return (state,) + self._collate([pending[k] for k in sorted(pending)])
 
 
 def synthetic_video(n_frames, h=480, w=640, box=60, seed=0):

@@ -71,11 +71,8 @@ class USOTTracker:
         state["im_w"] = im.shape[1]
 
         # Small-object videos get the big search area (ref :44-49)
-        if ((target_sz[0] * target_sz[1])
-                / float(state["im_h"] * state["im_w"])) < 0.004:
-            p.instance_size = p.big_sz
-        else:
-            p.instance_size = p.small_sz
+        p.instance_size = p.instance_of(target_sz, state["im_h"],
+                                        state["im_w"])
         p.renew()
         p.sf_size = p.score_size
         self._grids(p)
