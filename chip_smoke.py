@@ -52,6 +52,21 @@ Phases, each of which raises on failure (exit code != 0):
      full rings bitwise non-mutating, and the cost of its ring copies at
      B=8, 2048 frames; a frame step's time at B=8 and B=4. K1 launched
      on each protocol.
+ 10. training, through the trainer's function (`usot_tpu_torch.cli.train.
+     train`) at full width, 127/255, 4 memory frames, B=12, on a seeded
+     synthetic shard set in `usot_tpu.cli.make_shards`'s format: the
+     staged schedule cut to 6 epochs (cycle memory from 3, backbone
+     unfrozen at 5, 2 steps each), finite losses, the record's schedule
+     fields, checkpoints of epochs 5 and 6 only, a resume from epoch 5
+     within 1e-3 of the unbroken run's epoch 6; one step of three
+     programs at B=1 against the CPU (losses 1e-4 relative, gradients and
+     BN stats 1e-3 scale-aware; the unfrozen one in float64, its float32
+     gradients being ill-conditioned); ms per step, samples/s and peak memory
+     of the naive and cycle-memory steps, frozen and unfrozen, with remat
+     (same loss within 1e-5, lower peak) and accum=2; a `torch.profiler`
+     breakdown of an unfrozen cycle-memory step. Training builds the
+     model unfused, so it launches none of the three kernels (recorded
+     as `launches_by_path["training"]`).
 The line before the last is the `kernels` JSON object, the last
 {"ok": true, "device": {...}}. Without CUDA the script exits with an
 error and prints no result. It imports nothing of JAX.
@@ -1087,6 +1102,401 @@ def run_protocols(model, device, h=480, w=640, box=60, vot_lanes=8,
     return rec, total
 
 
+# --------------------------------------------------------------- training
+
+TEMPLATE, SEARCH, SCORE, STRIDE = 127, 255, 25, 8
+
+
+def _pool_label(bbox, feat_size, image_size):
+    """`usot_tpu/data/dataset.py:137-147`: an image box on a feature axis
+    of `feat_size` cells, clipped to the axis."""
+    from usot_tpu_torch.core.geometry import feature_axis
+
+    axis = feature_axis(feat_size, STRIDE, image_size)
+    lo, hi = float(axis[0]), float(axis[-1])
+    box = np.clip(np.asarray(bbox, np.float32), lo, hi)
+    return ((box - lo) * (2 * (feat_size // 2) / (hi - lo))).astype(
+        np.float32)
+
+
+def training_sample(rng, cycle_memory, mem=4, box=64):
+    """One training sample in `usot_tpu`'s dataset layout: a textured
+    `box`-px square on uniform noise, centred in the 127 template and
+    shifted by up to 24 px in the 255 search image (and in each of `mem`
+    memory frames), with the label disk, regression targets and pool
+    boxes of `usot_tpu/data/dataset.py:127-158,270-292` for that box.
+    Float HWC images, as a dataset yields them."""
+    from usot_tpu_torch.core.geometry import score_grid
+
+    def image(size, dx, dy):
+        im = rng.random((size, size, 3)) * 255.0
+        x1, y1 = size // 2 - box // 2 + dx, size // 2 - box // 2 + dy
+        im[y1:y1 + box, x1:x1 + box] = np.array([200.0, 180.0, 60.0]) \
+            + rng.normal(0.0, 40.0, (box, box, 3))
+        return (np.clip(np.round(im), 0, 255).astype(np.float32),
+                np.array([x1, y1, x1 + box, y1 + box], np.float32))
+
+    template, bt = image(TEMPLATE, 0, 0)
+    dx, dy = (int(v) for v in rng.integers(-24, 25, size=2))
+    search, bs = image(SEARCH, dx, dy)
+    gx, gy = score_grid(SCORE, STRIDE, SEARCH)
+    reg = np.stack([gx - bs[0], gy - bs[1], bs[2] - gx, bs[3] - gy], -1)
+    half = SCORE // 2
+    x, y = np.meshgrid(np.arange(SCORE) - float(half + int(dx / STRIDE)),
+                       np.arange(SCORE) - float(half + int(dy / STRIDE)))
+    sample = {
+        "template": template, "search": search,
+        "label": (np.abs(x) + np.abs(y) <= 2).astype(np.float32),
+        "reg_target": reg.astype(np.float32),
+        "reg_weight": (reg.min(-1) > 0).astype(np.float32),
+        "template_bbox": _pool_label(bt, 15, TEMPLATE)}
+    if cycle_memory:
+        sample["search_memory"] = np.stack([
+            image(SEARCH, *(int(v) for v in rng.integers(-24, 25, size=2)))
+            [0] for _ in range(mem)])
+        sample["search_bbox"] = _pool_label(bs, SCORE, SEARCH)
+    return sample
+
+
+class SyntheticSamples:
+    """`n` seeded `training_sample`s in the dataset protocol
+    `data.shards.write_shards` reads (len, index, cycle_memory, seed)."""
+
+    def __init__(self, n, cycle_memory, mem, seed):
+        self.n, self.cycle_memory, self.mem, self.seed = \
+            n, cycle_memory, mem, seed
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, index):
+        return training_sample(np.random.default_rng((self.seed, index)),
+                               self.cycle_memory, self.mem)
+
+
+def write_training_shards(root, end_epoch, memory_epoch, n_samples, mem,
+                          seed=0):
+    """A shard set for epochs 1..end_epoch under `root` (naive samples
+    before `memory_epoch`, cycle-memory ones from it), in the format of
+    `usot_tpu.cli.make_shards`. Returns its size in bytes."""
+    from usot_tpu_torch.data.shards import epoch_dir, write_shards
+
+    for epoch in range(1, end_epoch + 1):
+        write_shards(SyntheticSamples(n_samples, epoch >= memory_epoch, mem,
+                                      seed + epoch),
+                     epoch_dir(root, epoch), shard_size=n_samples)
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(root) for f in files)
+
+
+def training_config(out, width, channels, batch, mem, end_epoch=6,
+                    memory_epoch=3, unfix_epoch=5):
+    """The reference recipe (`experiments/train/USOT.yaml`) with depth cut
+    to `end_epoch` epochs: warmup over 2, lambda / cls_ratio shifts at 4
+    and 6, the memory phase from `memory_epoch`, unfreezing at
+    `unfix_epoch`; logs and checkpoints under `out`."""
+    from usot_tpu_torch.config.defaults import load_config
+
+    cfg = load_config(None)
+    cfg.OUTPUT_DIR = os.path.join(out, "log")
+    cfg.CHECKPOINT_DIR = os.path.join(out, "snapshot")
+    cfg.PRINT_FREQ = 1
+    tc = cfg.USOT.TRAIN
+    tc.WIDTH, tc.CHANNELS = width, channels
+    tc.BATCH = tc.BATCH_STAGE_2 = batch
+    tc.MEMORY_NUM = mem
+    tc.END_EPOCH, tc.MEMORY_EPOCH, tc.UNFIX_EPOCH = \
+        end_epoch, memory_epoch, unfix_epoch
+    tc.PRETRAIN = "none.pth"
+    tc.WARMUP.EPOCH = 2
+    tc.LR.KWARGS.end_lr = 0.0001
+    tc.LAMBDA_SHIFT_EPOCHS = [0, 4, 6]
+    tc.CLS_RATIO_SHIFT_EPOCHS = [0, 4, 6]
+    return cfg
+
+
+def train_args(shards, **kw):
+    from usot_tpu_torch.cli.train import parse_args
+
+    args = parse_args(["--shards", shards])
+    for k, v in kw.items():
+        setattr(args, k, v)
+    return args
+
+
+def _step_batch(samples, device):
+    """Collate samples as a shard batch (uint8 channel-flat images) on
+    `device`."""
+    from usot_tpu_torch.data.shards import _pack_sample
+
+    packed = [_pack_sample(s) for s in samples]
+    return {k: torch.from_numpy(np.stack([p[k] for p in packed])).to(device)
+            for k in packed[0]}
+
+
+def _fresh_step(model, state, cycle_memory, unfix, remat=False, accum=1):
+    """`model` reset to `state`, a new optimizer and the step of one
+    phase (lambda_1 0.3, the recipe's momentum and weight decay)."""
+    from usot_tpu_torch.train.optim import build_optimizer
+    from usot_tpu_torch.train.step import make_train_step
+
+    model.load_state_dict(state)
+    opt, _ = build_optimizer(model, 0.9, 1e-4, 0.1, unfix)
+    return make_train_step(model, opt, cycle_memory, unfix, 0.3,
+                           remat=remat, accum_steps=accum)
+
+
+def _grads_and_stats(model):
+    grads = {n: p.grad.detach().double().cpu()
+             for n, p in model.named_parameters() if p.grad is not None}
+    stats = {n: b.detach().double().cpu() for n, b in model.named_buffers()
+             if n.endswith(("running_mean", "running_var"))}
+    return grads, stats
+
+
+def training_vs_cpu(model, device, mem, tol=1e-3, loss_tol=1e-4):
+    """One step of three programs from the same weights on `device` and
+    on the CPU, B=1: naive and cycle memory with the stages frozen, in
+    float32 on both; naive with the stages unfrozen in float64 on both.
+    Losses within `loss_tol` relative, every gradient and BN running stat
+    within `tol` scale-aware (cuDNN's and the CPU's summation orders).
+    The unfrozen step in float32 is ill-conditioned (a 1x1 conv into a
+    train-mode BN whose input has mean^2/var ~100: the CPU's own float32
+    and float64 gradients differ by 1.5-3 % in layer1), so it is also run
+    in float32 on the card against the CPU's float64, holding its losses
+    and BN stats and recording its gradient gap."""
+    cpu = torch.device("cpu")
+    f32, f64 = torch.float32, torch.float64
+    models = {}
+
+    def copy_of(dev, dtype):
+        if (dev, dtype) not in models:
+            models[dev, dtype] = copy.deepcopy(model).to(dev, dtype)
+        return models[dev, dtype]
+
+    state = copy.deepcopy(model.state_dict())
+    rng = np.random.default_rng(5)
+    samples = {cyc: [training_sample(rng, cyc, mem)] for cyc in (False, True)}
+    out = {}
+    for label, cyc, unfix, dev_dtype, cpu_dtype, hold_grads in (
+            ("naive_frozen", False, False, f32, f32, True),
+            ("cycle_frozen", True, False, f32, f32, True),
+            ("naive_unfrozen_f64", False, True, f64, f64, True),
+            ("naive_unfrozen_f32_vs_cpu_f64", False, True, f32, f64, False)):
+        res = {}
+        for dev, dtype in ((device, dev_dtype), (cpu, cpu_dtype)):
+            m = copy_of(dev, dtype)
+            step = _fresh_step(m, state, cyc, unfix)
+            met = step(_step_batch(samples[cyc], dev), 0.005, 0.5)
+            res[dev.type] = ({k: float(v) for k, v in met.items()},
+                             *_grads_and_stats(m))
+        (l_dev, g_dev, s_dev), (l_cpu, g_cpu, s_cpu) = \
+            res[device.type], res["cpu"]
+        check(set(g_dev) == set(g_cpu) and len(g_dev) > 0,
+              f"{label}: trainable sets differ")
+        rec = {"loss": l_dev, "loss_cpu": l_cpu}
+        for k in l_cpu:
+            err = abs(l_dev[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-12)
+            check(np.isfinite(l_dev[k]) and err <= loss_tol,
+                  f"{label} {k}: {l_dev[k]} vs CPU {l_cpu[k]} ({err})")
+        for kind, a, b in (("grad", g_dev, g_cpu), ("bn_stat", s_dev, s_cpu)):
+            worst = max(((close_scaled(a[n], b[n], tol)[1], n) for n in b))
+            rec[f"max_scaled_{kind}_err"] = {"err": worst[0],
+                                             "tensor": worst[1]}
+            if kind == "bn_stat" or hold_grads:
+                check(worst[0] <= tol, f"{label}: {kind} {worst[1]} GPU vs "
+                      f"CPU {worst[0]} > {tol}")
+        out[label] = rec
+    print(json.dumps({"training_gpu_vs_cpu": out}), flush=True)
+    return out
+
+
+def _timed_steps(step, batch, n, device):
+    """(median ms of the n steps after the first, peak bytes allocated,
+    the first step's loss)."""
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    ms, losses = [], []
+    for _ in range(n + 1):
+        sync(device)
+        t0 = time.perf_counter()
+        met = step(batch, 0.005, 0.5)  # ends in the NaN gate's host sync
+        sync(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(met["loss"]))
+    peak = torch.cuda.max_memory_allocated(device) \
+        if device.type == "cuda" else None
+    return statistics.median(ms[1:]), peak, losses[0]
+
+
+def _profile_breakdown(step, batch, device, top=12):
+    """Device ms of one step by category, from `torch.profiler`'s op
+    attribution (each kernel's time goes to the op that launched it):
+    convolutions forward and backward, the correlation's grouped
+    convolutions apart (batch 1, one group per lane and channel), layout
+    copies and the rest; BatchNorm's forward (a range around each call:
+    its train-mode statistics are elementwise ops) and the SGD step
+    (torch's own `Optimizer.step` range) as the kernels inside their
+    ranges; and the `top` ops by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from usot_tpu_torch.models.layers import BatchNorm
+
+    plain_bn = BatchNorm.forward
+
+    def ranged(self, x, train=False):
+        with record_function("usot::batch_norm"):
+            return plain_bn(self, x, train)
+
+    BatchNorm.forward = ranged
+    try:
+        step(batch, 0.005, 0.5)  # warm
+        sync(device)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            step(batch, 0.005, 0.5)
+            sync(device)
+    finally:
+        BatchNorm.forward = plain_bn
+    cats = {k: 0.0 for k in ("conv_fwd", "conv_bwd", "correlation_fwd",
+                             "correlation_bwd", "layout_copies", "other")}
+    ranges = {"batch_norm_fwd": 0.0, "optimizer": 0.0}
+    ops: dict = {}
+    for ev in prof.key_averages(group_by_input_shape=True):
+        if ev.is_user_annotation:
+            if ev.device_type == DeviceType.CPU:
+                name = "batch_norm_fwd" if ev.key == "usot::batch_norm" \
+                    else "optimizer" if ev.key.startswith("Optimizer.step") \
+                    else None
+                if name:
+                    ranges[name] += ev.device_time_total / 1e3
+            continue
+        if ev.device_type != DeviceType.CPU:
+            continue  # a kernel's own event: its time is its op's already
+        own = ev.self_device_time_total / 1e3
+        if own == 0.0:
+            continue
+        ops[ev.key] = ops.get(ev.key, 0.0) + own
+        shapes = ev.input_shapes or [[]]
+        batch_1 = bool(shapes[0]) and shapes[0][0] == 1
+        if "conv" in ev.key:
+            kind = "bwd" if "backward" in ev.key else "fwd"
+            cats[("correlation_" if batch_1 else "conv_") + kind] += own
+        elif ev.key in ("aten::copy_", "aten::contiguous", "aten::clone"):
+            cats["layout_copies"] += own
+        else:
+            cats["other"] += own
+    top_ops = sorted(ops.items(), key=lambda kv: -kv[1])[:top]
+    return {"device_ms": sum(cats.values()), **cats, **ranges,
+            "top_ops_ms": dict(top_ops)}
+
+
+def run_training(device, width=64, channels=256, batch=12, mem=4, iters=2,
+                 timing_steps=3, out_dir=None):
+    """Phase 10: the trainer (`usot_tpu_torch.cli.train.train`) through
+    the staged schedule on a synthetic shard set, its resume, the step on
+    the card against the CPU and the step's times. Returns (record,
+    kernel launches on the training path)."""
+    import tempfile
+
+    from usot_tpu_torch.cli.train import train
+    from usot_tpu_torch.models.usot import build_usot, init_model
+    from usot_tpu_torch.train.schedulers import build_lr_spaces
+    from usot_tpu_torch.train.step import epoch_weights
+
+    rec = {"width": width, "channels": channels, "batch": batch,
+           "memory_frames": mem}
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        shards = os.path.join(tmp, "shards")
+        t0 = time.perf_counter()
+        rec["shard_bytes"] = write_training_shards(
+            shards, 6, 3, iters * batch, mem)
+        rec["shard_write_s"] = time.perf_counter() - t0
+        cfg = training_config(os.path.join(tmp, "full"), width, channels,
+                              batch, mem)
+        reset_launch_counts()  # the training path starts here
+        t0 = time.perf_counter()
+        full = train(cfg, train_args(shards), device)
+        rec["schedule_s"] = time.perf_counter() - t0
+        launches = launch_counts()  # read just after the path
+        check(all(n == 0 for n in launches.values()),
+              f"training launched a correlation kernel: {launches}")
+        tc = cfg.USOT.TRAIN
+        spaces = build_lr_spaces(tc, tc.END_EPOCH)
+        check(sorted(map(int, full["epochs"])) == list(range(1, 7)),
+              f"epochs run: {sorted(full['epochs'])}")
+        for e in range(1, 7):
+            r = full["epochs"][str(e)]
+            l1, _, ratio = epoch_weights(tc, e)
+            want = {"cycle_memory": e >= 3, "unfix": e >= 5,
+                    "lambda_1": l1, "cls_ratio": ratio, "n_iters": iters,
+                    "lr": float(spaces[e - 1])}
+            got = {k: r[k] for k in want}
+            check(got == want, f"epoch {e}: record {got}, expected {want}")
+            check(all(np.isfinite(r["losses"])), f"epoch {e}: {r['losses']}")
+        snap = cfg.CHECKPOINT_DIR
+        saved = sorted(f for f in os.listdir(snap))
+        check(saved == ["checkpoint_e5.pth", "checkpoint_e6.pth"],
+              f"checkpoints: {saved}")
+        rec["losses"] = {e: r["losses"] for e, r in full["epochs"].items()}
+        rec["epoch_s"] = {e: r["seconds"] for e, r in full["epochs"].items()}
+
+        resumed = train(
+            training_config(os.path.join(tmp, "resumed"), width, channels,
+                            batch, mem),
+            train_args(shards,
+                       resume=os.path.join(snap, "checkpoint_e5.pth")),
+            device)
+        a = np.array(full["epochs"]["6"]["losses"])
+        b = np.array(resumed["epochs"]["6"]["losses"])
+        delta = float(np.max(np.abs(a - b) / np.abs(a)))
+        check(sorted(resumed["epochs"]) == ["6"] and delta <= 1e-3,
+              f"resume: epoch-6 losses {b} vs unbroken {a} ({delta})")
+        rec["resume_max_rel_loss_delta"] = delta
+        print(json.dumps({"training_schedule": rec}), flush=True)
+
+    model = build_usot(mem_size=mem, width=width, channels=channels)
+    init_model(model, torch.Generator().manual_seed(0), device=device)
+    rec["gpu_vs_cpu"] = training_vs_cpu(model, device, mem)
+
+    state = copy.deepcopy(model.state_dict())
+    rng = np.random.default_rng(6)
+    batches = {cyc: _step_batch([training_sample(rng, cyc, mem)
+                                 for _ in range(batch)], device)
+               for cyc in (False, True)}
+    times = {}
+    for label, cyc, unfix, kw in (
+            ("naive_frozen", False, False, {}),
+            ("naive_unfrozen", False, True, {}),
+            ("cycle_frozen", True, False, {}),
+            ("cycle_unfrozen", True, True, {}),
+            ("cycle_unfrozen_remat", True, True, {"remat": True}),
+            ("cycle_unfrozen_accum2", True, True, {"accum": 2})):
+        step = _fresh_step(model, state, cyc, unfix, **kw)
+        ms, peak, loss = _timed_steps(step, batches[cyc], timing_steps,
+                                      device)
+        times[label] = {"ms_per_step": ms, "samples_per_s": batch * 1e3 / ms,
+                        "peak_bytes": peak, "first_loss": loss}
+        print(json.dumps({label: times[label]}), flush=True)
+    plain, remat = times["cycle_unfrozen"], times["cycle_unfrozen_remat"]
+    gap = abs(remat["first_loss"] - plain["first_loss"]) \
+        / abs(plain["first_loss"])
+    check(gap <= 1e-5, f"remat loss {remat['first_loss']} vs "
+          f"{plain['first_loss']}")
+    if device.type == "cuda":
+        check(remat["peak_bytes"] < plain["peak_bytes"],
+              f"remat peak {remat['peak_bytes']} >= {plain['peak_bytes']}")
+    rec["steps"] = times
+    if device.type == "cuda":
+        rec["profile_cycle_unfrozen"] = _profile_breakdown(
+            _fresh_step(model, state, True, True), batches[True], device)
+        print(json.dumps({"profile_cycle_unfrozen":
+                          rec["profile_cycle_unfrozen"]}), flush=True)
+    return rec, launches
+
+
 # ------------------------------------------------------------------- main
 
 def ptxas_report(built):
@@ -1155,6 +1565,8 @@ def main() -> int:
     batch_rec, batch_k1 = run_batch_engine(model, device, card=card)
     scan_rec, scan_k1 = run_scan_engine(model, device, card=card)
     proto_rec, proto_k1 = run_protocols(model, device, card=card)
+    del model
+    train_rec, train_launches = run_training(device)
 
     def pick(records, tag, shape):
         return next(r for r in records
@@ -1166,13 +1578,16 @@ def main() -> int:
         kernel_line("K1", pick(k1_records, "K1",
                                "engine, instance 255, B=32, M=7, C=256, f32"),
                     sum(k1_paths.values()),
-                    {**k1_paths, "tools": tool_counts["K1"]}),
+                    {**k1_paths, "tools": tool_counts["K1"],
+                     "training": train_launches["K1"]}),
         kernel_line("K2", pick(single_records, "K2",
                                "B=32, M=7, 29x29 / 5x5, C=256, bf16"),
-                    tool_counts["K2"], {"tools": tool_counts["K2"]}),
+                    tool_counts["K2"], {"tools": tool_counts["K2"],
+                                        "training": train_launches["K2"]}),
         kernel_line("K3", pick(single_records, "K3",
                                "B=32, 29x29 / 5x5, C=256, bf16"),
-                    tool_counts["K3"], {"tools": tool_counts["K3"]}),
+                    tool_counts["K3"], {"tools": tool_counts["K3"],
+                                        "training": train_launches["K3"]}),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched")
@@ -1182,6 +1597,7 @@ def main() -> int:
                "slice": [r for r, _ in results], "gpu_vs_cpu": errs,
                "tools": tool_records, "batch_engine": batch_rec,
                "scan_engine": scan_rec, "protocols": proto_rec,
+               "training": train_rec,
                "seconds": time.perf_counter() - t_start}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

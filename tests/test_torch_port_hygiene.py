@@ -37,8 +37,33 @@ def test_importing_every_module_loads_no_jax():
     lines = proc.stdout.split()
     assert int(lines[0]) >= 20  # every sub-package and module was imported
     loaded = lines[1:]
-    assert "usot_tpu_torch.tracker.tracker" in loaded
+    for name in ("tracker.tracker", "config.defaults", "train.losses",
+                 "train.optim", "train.step", "train.checkpoint",
+                 "train.schedulers", "utils.edict", "utils.meters",
+                 "data.shards", "cli.train"):
+        assert "usot_tpu_torch." + name in loaded, name
     assert [m for m in loaded if _forbidden(m)] == []
+
+
+def test_training_imports_no_optional_library():
+    """The trainer and its modules import PyYAML only when a config file
+    is read, and neither OpenCV, Pillow nor tensorboardX at module level
+    (the GPU machine has none of them)."""
+    script = textwrap.dedent("""
+        import sys
+        import usot_tpu_torch.cli.train
+        import usot_tpu_torch.config.defaults
+        import usot_tpu_torch.data.shards
+        import usot_tpu_torch.train.step
+        import usot_tpu_torch.train.checkpoint
+        print(sorted(n for n in sys.modules if n.split(".")[0] in
+                     ("yaml", "cv2", "PIL", "tensorboardX")))
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300,
+                          check=True)
+    assert proc.stdout.split() == ["[]"]
 
 
 def test_no_source_file_names_jax():
@@ -87,6 +112,14 @@ def test_entry_points_raise_without_a_gpu(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["--dataset", "OTB2015", "--dataset_root",
                   str(tmp_path / "none"), "--result_dir", str(tmp_path)])
+    assert not any(tmp_path.iterdir())
+    # the trainer, before it reads a config, a checkpoint or a shard set
+    from usot_tpu_torch.cli import train as train_cli
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_cli.main(["--cfg", str(tmp_path / "none.yaml"), "--shards",
+                        str(tmp_path / "none"), "--resume",
+                        str(tmp_path / "none.pth")])
     assert not any(tmp_path.iterdir())
     # the engine the lockstep protocols and the lane surgery run on
     with pytest.raises(RuntimeError, match="CUDA"):

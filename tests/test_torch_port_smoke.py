@@ -206,6 +206,62 @@ def test_protocols_run_at_small_width(tmp_path):
         == 2049 * 55 * 32 * 4
 
 
+def _check_training_record(rec, launches):
+    assert launches == {"K1": 0, "K2": 0, "K3": 0}
+    assert sorted(rec["losses"]) == [str(e) for e in range(1, 7)]
+    assert all(len(v) == 2 for v in rec["losses"].values())
+    assert rec["resume_max_rel_loss_delta"] <= 1e-3
+    assert set(rec["gpu_vs_cpu"]) == {
+        "naive_frozen", "cycle_frozen", "naive_unfrozen_f64",
+        "naive_unfrozen_f32_vs_cpu_f64"}
+    assert set(rec["steps"]) == {
+        "naive_frozen", "naive_unfrozen", "cycle_frozen", "cycle_unfrozen",
+        "cycle_unfrozen_remat", "cycle_unfrozen_accum2"}
+    assert all(r["ms_per_step"] > 0 and r["samples_per_s"] > 0
+               for r in rec["steps"].values())
+
+
+def test_training_runs_at_small_width(tmp_path):
+    """Phase 10 at w8c32, B=2, 2 memory frames on the CPU: the 6-epoch
+    staged schedule through the trainer's function on a synthetic shard
+    set, its resume (exact on the CPU), the step against the CPU (the
+    same device in this rehearsal: exact, but for the float32 step held
+    against the float64 one) and the timed programs; no kernel
+    launched."""
+    rec, launches = chip_smoke.run_training(
+        CPU, width=8, channels=32, batch=2, mem=2, iters=2, timing_steps=1,
+        out_dir=str(tmp_path))
+    _check_training_record(rec, launches)
+    assert rec["resume_max_rel_loss_delta"] == 0.0
+    held = ("naive_frozen", "cycle_frozen", "naive_unfrozen_f64")
+    assert all(rec["gpu_vs_cpu"][k]["max_scaled_grad_err"]["err"] == 0.0
+               for k in held)
+
+
+def test_training_sample_labels_its_box():
+    """`training_sample`: the label disk, the regression targets and the
+    pool box describe the square drawn in the search image."""
+    sample = chip_smoke.training_sample(np.random.default_rng(0), True,
+                                        mem=3)
+    assert sample["search_memory"].shape == (3, 255, 255, 3)
+    # the box back from the search feature axis (cells 8 px from x=31)
+    x1, y1, x2, y2 = sample["search_bbox"] / 0.125 + 31
+    assert x2 - x1 == y2 - y1 == 64
+    inner = sample["search"][int(y1) + 8:int(y2) - 8,
+                             int(x1) + 8:int(x2) - 8].reshape(-1, 3)
+    assert np.all(np.abs(inner.mean(0) - [200, 180, 60]) < 10)
+    # 7 or 8 grid points per axis fall strictly inside a 64-px box
+    w = sample["reg_weight"]
+    rows, cols = np.nonzero(w)
+    assert w.sum() in (49, 56, 64)
+    assert np.all(sample["reg_target"][w == 1] > 0)
+    assert np.all(sample["reg_target"][w == 0].min(-1) <= 0)
+    centre = (np.array([(y1 + y2) / 2, (x1 + x2) / 2]) - 127) / 8 + 12
+    assert np.all(np.abs(np.argwhere(sample["label"] == 1).mean(0)
+                         - centre) <= 1)
+    assert sample["label"].sum() == 13  # the L1 disk of radius 2
+
+
 def test_slice_runs_at_small_width():
     model, results, launches = chip_smoke.run_slice(
         CPU, width=8, channels=32, n_frames=3, n_iter=1)
@@ -309,6 +365,22 @@ def test_engine_chunk_makes_no_host_sync_on_gpu():
     assert chip_smoke.launch_counts()["K1"] == 3 * 4
     assert state.mem_len.tolist() == [5, 4]
     assert bool(torch.isfinite(outs[0]).all())
+
+
+@pytest.mark.gpu
+def test_training_runs_on_gpu(tmp_path):
+    """Phase 10 on the card at small width: the schedule, its resume
+    within 1e-3, the step against the CPU (losses 1e-4, gradients and BN
+    stats 1e-3), remat below the plain step's peak memory; no kernel."""
+    cuda = _cuda()
+    rec, launches = chip_smoke.run_training(
+        cuda, width=8, channels=32, batch=2, mem=2, iters=2, timing_steps=1,
+        out_dir=str(tmp_path))
+    _check_training_record(rec, launches)
+    steps = rec["steps"]
+    assert steps["cycle_unfrozen_remat"]["peak_bytes"] \
+        < steps["cycle_unfrozen"]["peak_bytes"]
+    assert rec["profile_cycle_unfrozen"]["device_ms"] > 0
 
 
 @pytest.mark.gpu

@@ -78,14 +78,49 @@ def _run(tracker, runner, frames, pos, sz):
     return st, out
 
 
+def _record_memory_writes(runner, monkeypatch):
+    """Record (crop, pool box, feature) of every memory feature the port
+    runner extracts, on the crop it was computed from."""
+    calls, last = [], {}
+    search_features = runner.search_features
+    extract = runner.extract_memory_feature
+
+    def on_search(x_hwc):
+        last["crop"] = np.array(x_hwc)
+        return search_features(x_hwc)
+
+    def on_extract(x_hwc=None, xf=None, search_bbox=None):
+        out = extract(x_hwc=x_hwc, xf=xf, search_bbox=search_bbox)
+        crop = np.array(x_hwc) if x_hwc is not None else last["crop"]
+        calls.append((crop, np.array(search_bbox), out))
+        return out
+
+    monkeypatch.setattr(runner, "search_features", on_search)
+    monkeypatch.setattr(runner, "extract_memory_feature", on_extract)
+    return calls
+
+
 @pytest.mark.parametrize("size,box", [(320, 48), (640, 16)])
 def test_tracker_matches_jax(runners, monkeypatch, size, box):
     """Both trackers crop with the port's get_subwindow (the one intended
     difference, cv2 fixed point vs float bilinear, is covered above), so
     the rest of the loop must agree: network, postprocess, queue
-    sampling and memory write."""
+    sampling and memory write.
+
+    Each memory feature is held at scale-aware 1e-4 against JAX's runner
+    on the same crop and pool box, not against JAX's free-running
+    feature: those are pooled at the two trackers' own boxes, which part
+    by the sub-pixel trajectory gap (held at 0.5 px above). On the
+    fixture's crops a box shift of 1e-3 px alone moves the pooled feature
+    by 1.9e-4 (scale-aware), so the free-running comparison held the
+    trajectories to ~1e-3 px, not 0.5: it passed at a measured 8e-4 px
+    gap and failed once at 1.8e-4. On the same crop and box the two
+    networks agree within 2.1e-5 (measured). The engines' tests meet the
+    same drift and hold scores, not features, free-running
+    (`test_torch_port_engine.py:18-23`)."""
     monkeypatch.setattr(jax_tracker_mod, "get_subwindow", get_subwindow)
     jax_runner, port_runner = runners
+    writes = _record_memory_writes(port_runner, monkeypatch)
     n_frames = 11 if box == 48 else 5
     frames, centers = synthetic_video(n_frames=n_frames, size=size, box=box)
     pos = np.array(centers[0], np.float64)
@@ -100,12 +135,19 @@ def test_tracker_matches_jax(runners, monkeypatch, size, box):
         np.testing.assert_allclose(ps, js, atol=0.5)
     np.testing.assert_allclose(p_st["memory_confidences"],
                                j_st["memory_confidences"], atol=1e-5, rtol=0)
-    assert len(p_st["memory_features"]) == n_frames
-    feats = [f.numpy() for f in p_st["memory_features"]]
-    ref = [np.asarray(f) for f in j_st["memory_features"]]
-    scale = max(np.abs(np.stack(ref)).max(), 1.0)
-    np.testing.assert_allclose(np.stack(feats), np.stack(ref),
-                               atol=1e-4 * scale, rtol=0)
+    assert len(p_st["memory_features"]) == len(j_st["memory_features"]) \
+        == n_frames
+    # init: the feature and its flipped anchor; then one per frame
+    assert len(writes) == n_frames + 1
+    assert p_st["init_features"][1] is writes[1][2]
+    assert all(f is w[2] for f, w in zip(p_st["memory_features"],
+                                         writes[:1] + writes[2:]))
+    for crop, box_, feat in writes:
+        ref = np.asarray(jax_runner.extract_memory_feature(
+            x_hwc=crop, search_bbox=box_))
+        scale = max(np.abs(ref).max(), 1.0)
+        np.testing.assert_allclose(feat.numpy(), ref, atol=1e-4 * scale,
+                                   rtol=0)
 
 
 def test_fixture_port_follows_target(runners):

@@ -1,0 +1,262 @@
+"""The port's trainer (`usot_tpu_torch.cli.train.main`) against the JAX
+trainer (`usot_tpu.cli.train.main`) through the staged schedule, on the
+CPU at the fixture's widths (w8c32, 127/255, 2 memory frames, B=2).
+
+One shard set, written by `usot_tpu.cli.make_shards` from synthetic
+crop511 videos (`tests/test_train_schedule.py:71-104`), feeds both; both
+load the same initial weights, written as `pretrain/init.pth` and read
+by each package's own `load_pretrain`: flax's init distributions, drawn
+by the port's `init_model` (what `usot_tpu`'s `init_variables` draws,
+without its ~36 s trace). The schedule is cut to 6
+epochs of 2 steps: naive Siamese, cycle memory from epoch 3, the backbone
+unfrozen at 5 (a new optimizer), warmup over 2 epochs, lambda_1 /
+cls_ratio shifts at 4 and 6, checkpoints from epoch 5.
+"""
+import json
+import os
+
+import jax
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from usot_tpu_torch.cli.train import main as port_main
+from usot_tpu_torch.models.convert import state_dict_from_flax
+from usot_tpu_torch.models.usot import build_usot, init_model
+
+from torch_port_common import (load_fixture, optax_momentum, scaled_err,
+                               torch_layout)
+
+
+torch.set_num_threads(2)
+END_EPOCH, MEMORY_EPOCH, UNFIX_EPOCH = 6, 3, 5
+
+
+def _write_cfg(root, tag, crop_dir=None, ann_path=None):
+    cfg = {"USOT": {
+        "OUTPUT_DIR": str(root / tag / "log"),
+        "CHECKPOINT_DIR": str(root / tag / "snapshot"),
+        "WORKERS": 2, "PRINT_FREQ": 1,
+        "TRAIN": {
+            "WIDTH": 8, "CHANNELS": 32, "START_EPOCH": 1,
+            "END_EPOCH": END_EPOCH, "BATCH": 2, "BATCH_STAGE_2": 2,
+            "MEMORY_EPOCH": MEMORY_EPOCH, "UNFIX_EPOCH": UNFIX_EPOCH,
+            "MEMORY_NUM": 2, "PRETRAIN": "init.pth",
+            "WHICH_USE": ["GOT10K"],
+            "WARMUP": {"IFNOT": True, "TYPE": "step", "EPOCH": 2,
+                       "KWARGS": {"start_lr": 0.0025, "end_lr": 0.005,
+                                  "step": 1}},
+            "LR": {"TYPE": "log",
+                   "KWARGS": {"start_lr": 0.005, "end_lr": 0.0001}},
+            "LAMBDA_SHIFT_EPOCHS": [0, 4, 6],
+            "LAMBDA_1_LIST": [0.30, 0.275, 0.25],
+            "CLS_RATIO_SHIFT_EPOCHS": [0, 4, 6],
+            "CLS_RATIOS": [0.6, 0.5, 0.4]},
+        "DATASET": {"GOT10K": {"PATH": str(crop_dir) + "/",
+                               "ANNOTATION": str(ann_path), "USE": 4}}}}
+    path = root / f"{tag}.yaml"
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return str(path)
+
+
+@pytest.fixture(scope="module")
+def setup(tmp_path_factory):
+    """Synthetic crop511 videos, a shard set for epochs 1-6 from JAX's
+    make_shards, and the initial weights as `pretrain/init.pth`."""
+    import cv2
+
+    from usot_tpu.cli.make_shards import main as make_shards
+
+    root = tmp_path_factory.mktemp("train_cli")
+    crop_dir = root / "crop511"
+    rng = np.random.default_rng(7)
+    ann = {}
+    for v in ("vid_a", "vid_b"):
+        os.makedirs(crop_dir / v)
+        track = {}
+        for f in range(12):
+            im = (rng.random((511, 511, 3)) * 255).astype(np.uint8)
+            im[200:310, 200:310] = [200, 180, 60]
+            cv2.imwrite(str(crop_dir / v / f"{f:06d}.00.x.jpg"), im)
+            track[str(f)] = [200.0, 200.0, 310.0, 310.0, 0.9, 0.8,
+                             max(0, f - 4), min(11, f + 4), 0.0]
+        track["meta"] = {"bbox_picked_freq": 0.9, "corner_bbox_freq": 0.05}
+        ann[v] = {"00": track}
+    ann_path = root / "train.json"
+    with open(ann_path, "w") as f:
+        json.dump(ann, f)
+    shards = str(root / "shards")
+    make_shards(["--cfg", _write_cfg(root, "shards", crop_dir, ann_path),
+                 "--out", shards, "--epochs", f"1-{END_EPOCH}",
+                 "--samples", "4", "--workers", "2"])
+
+    model = init_model(build_usot(mem_size=2, width=8, channels=32),
+                       torch.Generator().manual_seed(3), device="cpu")
+    os.makedirs(root / "pretrain")
+    torch.save({"state_dict": model.state_dict()},
+               str(root / "pretrain" / "init.pth"))
+    return root, crop_dir, ann_path, shards
+
+
+def _record(root, tag):
+    with open(root / tag / "log" / "train_record.json") as f:
+        return json.load(f)
+
+
+@pytest.fixture(scope="module")
+def runs(setup):
+    """JAX's unbroken run; the port's unbroken run, one stopped after
+    epoch 5, and its resume from `checkpoint_e5.pth`."""
+    from usot_tpu.cli.train import main as jax_main
+
+    root, crop_dir, ann_path, shards = setup
+    with pytest.MonkeyPatch.context() as mp:
+        mp.chdir(root)  # both trainers read pretrain/<PRETRAIN> from here
+
+        def cfg(tag):
+            return _write_cfg(root, tag, crop_dir, ann_path)
+
+        jax_main(["--cfg", cfg("jax"), "--devices", "1", "--shards",
+                  shards])
+        port = ["--device", "cpu", "--shards", shards]
+        port_main(["--cfg", cfg("port")] + port)
+        port_main(["--cfg", cfg("stopped"), "--stop-after-epoch",
+                   str(UNFIX_EPOCH)] + port)
+        resume = str(root / "stopped" / "snapshot" / "checkpoint_e5.pth")
+        port_main(["--cfg", cfg("resumed"), "--resume", resume] + port)
+    return {tag: _record(root, tag)
+            for tag in ("jax", "port", "stopped", "resumed")}
+
+
+def test_schedule_fields_equal_jax(runs):
+    """Every epoch ran, with JAX's lr, phase, unfreeze, lambda_1,
+    cls_ratio, batch and step count."""
+    jax_rec, port_rec = runs["jax"]["epochs"], runs["port"]["epochs"]
+    assert sorted(map(int, port_rec)) == list(range(1, END_EPOCH + 1))
+    for e in map(str, range(1, END_EPOCH + 1)):
+        for k in ("lr", "cycle_memory", "unfix", "lambda_1", "cls_ratio",
+                  "batch", "n_iters"):
+            assert port_rec[e][k] == jax_rec[e][k], (e, k)
+        assert port_rec[e]["n_iters"] == 2
+        assert port_rec[e]["cycle_memory"] == (int(e) >= MEMORY_EPOCH)
+        assert port_rec[e]["unfix"] == (int(e) >= UNFIX_EPOCH)
+
+
+def test_losses_follow_jax(runs):
+    """Per-step losses against JAX's, relative: the frozen epochs 1-4
+    within 1e-4 (measured at most 3.7e-7); the unfrozen epochs 5-6 within
+    1e-2 (measured at most 1.4e-5). There the float32 steps are
+    ill-conditioned (`test_torch_port_train_cycle.py` holds them in
+    float64) and the cycle branch's forward maps came within 0.9-1.2x of
+    the two packages' gap on them at their top-2 cells (in the frozen
+    epochs >= 21x): on a host whose f32 summation orders differ, one
+    memory frame may pick the other cell, which moves the loss ~1e-3
+    relative and the steps after it a few times that."""
+    jax_rec, port_rec = runs["jax"]["epochs"], runs["port"]["epochs"]
+    for e in map(str, range(1, END_EPOCH + 1)):
+        a = np.array(port_rec[e]["losses"])
+        b = np.array(jax_rec[e]["losses"])
+        tol = 1e-4 if int(e) < UNFIX_EPOCH else 1e-2
+        assert np.all(np.isfinite(a))
+        assert np.all(np.abs(a - b) <= tol * np.abs(b)), (e, a, b)
+
+
+def test_checkpoints_from_epoch_five(setup, runs):
+    root = setup[0]
+    snap = root / "port" / "snapshot"
+    assert sorted(os.listdir(snap)) == [f"checkpoint_e{e}.pth"
+                                        for e in range(5, END_EPOCH + 1)]
+    for e in range(1, END_EPOCH + 1):
+        rec = runs["port"]["epochs"][str(e)]
+        assert (rec["checkpoint"] is not None) == (e >= 5)
+
+
+def test_resume_continues_the_run(setup, runs):
+    """Stopped after epoch 5 (`--stop-after-epoch`, the schedule kept) and
+    resumed from `checkpoint_e5.pth` (the optimizer rebuilt for the
+    checkpoint's unfrozen stage before its momentum loads): epoch 6's
+    losses equal the unbroken run's within 1e-6 (measured 0.0)."""
+    stopped, resumed = runs["stopped"], runs["resumed"]
+    unbroken = runs["port"]["epochs"]
+    assert sorted(map(int, stopped["epochs"])) == list(range(1, 6))
+    for e in map(str, range(1, 6)):
+        assert stopped["epochs"][e]["losses"] == unbroken[e]["losses"]
+    assert resumed["start_epoch"] == 6 and list(resumed["epochs"]) == ["6"]
+    assert resumed["resumed_from"].endswith("checkpoint_e5.pth")
+    a = np.array(resumed["epochs"]["6"]["losses"])
+    b = np.array(unbroken["6"]["losses"])
+    assert np.all(np.abs(a - b) <= 1e-6), (a, b)
+
+
+def test_momentum_restarts_at_unfreeze(setup, runs):
+    """At UNFIX_EPOCH both trainers build a new optimizer, so every group's
+    momentum restarts. After epoch 5's two steps the port's buffers
+    (`checkpoint_e5.pth`) equal optax's trace in JAX's
+    `checkpoint_e5.ckpt`: the neck and head within 1e-2 (measured
+    3.1e-3), the backbone within 0.3 (measured 8.3e-2: its float32
+    gradients are ill-conditioned, see `test_torch_port_train_cycle.py`).
+    A trainer that carried the old buffers across the unfreeze fails
+    this by far (measured: 2.35 on the head)."""
+    from usot_tpu.train.checkpoint import restore_checkpoint
+    from usot_tpu.train.optim import build_optimizer as jax_optimizer
+    from usot_tpu.train.step import TrainState
+    from usot_tpu_torch.train.optim import build_optimizer
+
+    root = setup[0]
+    _, v = load_fixture()  # the variable tree of w8c32 with 2 frames
+    tx, _ = jax_optimizer(v["params"], 0.9, 1e-4, 0.1, True)
+    state, epoch = restore_checkpoint(
+        str(root / "jax" / "snapshot" / "checkpoint_e5.ckpt"),
+        TrainState(v["params"], v["batch_stats"], tx.init(v["params"])))
+    assert epoch == 5
+    params = jax.tree.map(np.asarray, state.params)
+    ref = torch_layout(optax_momentum(state.opt_state, params),
+                       jax.tree.map(np.asarray, state.batch_stats))
+
+    ckpt = torch.load(str(root / "port" / "snapshot" / "checkpoint_e5.pth"),
+                      map_location="cpu", weights_only=True)["optimizer"]
+    model = build_usot(mem_size=2, width=8, channels=32)
+    opt, labels = build_optimizer(model, 0.9, 1e-4, 0.1, True)
+    names = {id(p): n for n, p in model.named_parameters()}
+    order = [names[id(p)] for g in opt.param_groups for p in g["params"]]
+    assert len(ckpt["state"]) == len(order)
+    worst = {"backbone": 0.0, "base": 0.0}
+    for i, st in ckpt["state"].items():
+        n = order[i]
+        err = scaled_err(st["momentum_buffer"].numpy(), ref[n])
+        worst[labels[n]] = max(worst[labels[n]], err)
+    assert worst["base"] <= 1e-2 and worst["backbone"] <= 0.3, worst
+
+
+def test_jax_reads_the_port_checkpoint(setup, runs):
+    """`usot_tpu.train.checkpoint.load_variables` reads the port's
+    `checkpoint_e6.pth` (the original torch layout): its weights and BN
+    stats are the port's, bitwise."""
+    from usot_tpu.train.checkpoint import load_variables
+
+    path = str(setup[0] / "port" / "snapshot" / "checkpoint_e6.pth")
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    assert state["epoch"] == 6 and state["arch"] == "USOT"
+    assert set(state) == {"epoch", "arch", "state_dict", "optimizer"}
+    got = state_dict_from_flax(load_variables(path))
+    for k, t in got.items():
+        assert torch.equal(state["state_dict"][k], t), k
+
+
+def test_port_cli_refuses_what_it_does_not_run(setup, tmp_path):
+    """No shard set (the live loader is not ported), several devices,
+    bfloat16: refused before training starts."""
+    root, crop_dir, ann_path, shards = setup
+    cfg = _write_cfg(tmp_path, "refused", crop_dir, ann_path)
+    with pytest.raises(FileNotFoundError, match="live loader"):
+        port_main(["--cfg", cfg, "--device", "cpu", "--shards",
+                   str(tmp_path / "none")])
+    with pytest.raises(SystemExit, match="one\\s+GPU"):
+        port_main(["--cfg", cfg, "--device", "cpu", "--shards", shards,
+                   "--devices", "2"])
+    with pytest.raises(SystemExit, match="float32"):
+        port_main(["--cfg", cfg, "--device", "cpu", "--shards", shards,
+                   "--dtype", "bfloat16"])
+    assert not (tmp_path / "refused").exists()

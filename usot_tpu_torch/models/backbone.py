@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from usot_tpu_torch.models.layers import BatchNorm, ConvBN, to_nchw, to_nhwc
 
@@ -84,14 +85,22 @@ class ResNetPlus2(nn.Module):
         self.layer3 = _stage(8 * w, 4 * w, LAYERS[2], 1, 2)
 
     def forward(self, x, stem_bn_train: bool = False,
-                stage_bn_train: bool = False):
+                stage_bn_train: bool = False, remat: bool = False):
         """BN modes: stem (conv1/bn1) and stages separately, mirroring the
-        staged freeze/unfreeze schedule (ref: scripts/train_usot.py:72-102)."""
+        staged freeze/unfreeze schedule (ref: scripts/train_usot.py:72-102).
+        remat: each bottleneck under `torch.utils.checkpoint`, so backward
+        keeps only the blocks' inputs and recomputes one block at a time
+        (its train-mode BNs update their running stats again; the
+        training step puts them back)."""
         x = F.relu(self.bn1(self.conv1(to_nchw(x)), stem_bn_train))
         x = F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
         for layer in (self.layer1, self.layer2, self.layer3):
             for block in layer:
-                x = block(x, stage_bn_train)
+                if remat:
+                    x = torch.utils.checkpoint.checkpoint(
+                        block, x, stage_bn_train, use_reentrant=False)
+                else:
+                    x = block(x, stage_bn_train)
         return to_nhwc(x)
 
 
@@ -103,5 +112,5 @@ class ResNet50(nn.Module):
         self.features = ResNetPlus2(width)
 
     def forward(self, x, stem_bn_train: bool = False,
-                stage_bn_train: bool = False):
-        return self.features(x, stem_bn_train, stage_bn_train)
+                stage_bn_train: bool = False, remat: bool = False):
+        return self.features(x, stem_bn_train, stage_bn_train, remat)

@@ -1,6 +1,8 @@
 """Weight bridge into the port's reference-layout state dict.
 
-Counterpart of `usot_tpu/models/convert.py:23-254`. The port's modules
+Counterpart of `usot_tpu/models/convert.py:23-314`; training's
+`load_pretrain` takes a full USOT `.pth` or a backbone-only ImageNet /
+MoCo pretrain (`convert_backbone_pretrain`). The port's modules
 carry the reference's key names, so a published `USOT*.pth` loads after
 `strip_prefix` (`model.load_state_dict(strip_prefix(ckpt["state_dict"]))`
 for a checkpoint that nests its state dict), and JAX-side flax variables
@@ -18,6 +20,7 @@ buffer registered, and a missing entry loads with strict=True.
 """
 from __future__ import annotations
 
+import re
 from typing import Dict
 
 import numpy as np
@@ -124,3 +127,63 @@ def state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
     sd[f"{cm}.bias"] = _t(_get(params, ["connect", "bias"])
                           .transpose(0, 3, 1, 2))  # (1,1,1,4) -> (1,4,1,1)
     return sd
+
+
+def _backbone_convbns():
+    """(conv key, bn key) of every conv+BN pair of the backbone, in the
+    reference layout."""
+    pre = "features.features."
+    pairs = [(pre + "conv1.weight", pre + "bn1")]
+    for layer, blocks in _LAYER_BLOCKS.items():
+        for i in range(blocks):
+            tb = f"{pre}{layer}.{i}."
+            pairs += [(tb + f"conv{j}.weight", tb + f"bn{j}")
+                      for j in (1, 2, 3)]
+            pairs.append((tb + "downsample.0.weight", tb + "downsample.1"))
+    return pairs
+
+
+def convert_backbone_pretrain(sd: Dict, state: Dict) -> Dict:
+    """Backbone-only ImageNet / MoCo-v2 pretrain merged into `state` (the
+    model's state dict); counterpart of `usot_tpu/models/convert.py:
+    257-305`. Returns a new state dict.
+
+    MoCo keys look like `encoder_q.conv1.weight` (or `backbone.…`);
+    canonical torchvision keys like `conv1.weight`. A 1x1 downsample is
+    zero-padded into this architecture's 3x3 slot (ref:
+    train_utils.py:109-124). Only backbone conv+BN pairs present in `sd`
+    are replaced (`layer4`, `fc` and `num_batches_tracked` are ignored);
+    everything else keeps `state`'s value."""
+    remapped = {"features.features." + re.sub(r"^(encoder_q\.|backbone\.)",
+                                              "", k): v
+                for k, v in sd.items()}
+    out = dict(state)
+    for conv_key, bn_key in _backbone_convbns():
+        if conv_key not in remapped or conv_key not in state:
+            continue
+        w = torch.as_tensor(np.asarray(remapped[conv_key]))
+        if w.shape[2] == 1 and state[conv_key].shape[2] == 3:
+            padded = torch.zeros(tuple(w.shape[:2]) + (3, 3), dtype=w.dtype)
+            padded[:, :, 1:2, 1:2] = w
+            w = padded
+        out[conv_key] = w
+        for name in ("weight", "bias", "running_mean", "running_var"):
+            out[f"{bn_key}.{name}"] = torch.as_tensor(
+                np.asarray(remapped[f"{bn_key}.{name}"]))
+    return out
+
+
+def load_pretrain(model, path: str):
+    """Load `pretrain/<PRETRAIN>` into `model` in place (ref:
+    train_utils.py:92-128): a full USOT checkpoint (`connect_model.`
+    keys) loads whole, strictly; a backbone pretrain goes through
+    `convert_backbone_pretrain`. Either may nest its state dict under
+    "state_dict" and carry `module.`-style prefixes."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(ckpt, dict) and "state_dict" in ckpt:
+        ckpt = ckpt["state_dict"]
+    sd = strip_prefix(ckpt)
+    if not any(k.startswith("connect_model.") for k in sd):
+        sd = convert_backbone_pretrain(sd, model.state_dict())
+    model.load_state_dict(sd)
+    return model

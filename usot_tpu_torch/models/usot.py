@@ -1,6 +1,7 @@
-"""USOT model: backbone + neck + correlation heads, inference path.
+"""USOT model: backbone + neck + correlation heads, inference and training
+paths.
 
-Counterpart of `usot_tpu/models/usot.py:27-207,293-335` (ref:
+Counterpart of `usot_tpu/models/usot.py:27-335` (ref:
 lib/models/models.py). Submodules carry the reference state-dict names
 (`features.features.*`, `neck.downsample.*`, `connect_model.*`), so
 `load_state_dict` takes a published `USOT*.pth` (after prefix stripping)
@@ -22,9 +23,11 @@ from usot_tpu_torch.models.head import BoxTowerReg, GroupDW
 from usot_tpu_torch.models.layers import BatchNorm
 from usot_tpu_torch.models.neck import AdjustLayer
 from usot_tpu_torch.ops.prroi import prroi_pool_same_batch
+from usot_tpu_torch.train.losses import iou_loss, weighted_bce
 
 
 STRIDE = 8  # backbone output stride
+SEARCH_SIZE, SF_SIZE = 255, 25  # training's search crop and feature map
 
 
 def pred_offset_to_image_bbox(bbox_pred, search_size: int, score_size: int,
@@ -56,9 +59,10 @@ class USOTNet(nn.Module):
     Inference methods: `template_features`, `search_features`,
     `track_offline`, `track_memory(_batched)`, `encode_template`,
     `encode_memory_kernels`, `track_memory_encoded(_batched|_fused)`,
-    `pool_memory_feature`. `fused_xcorr=True` sends the three GroupDW
-    correlations of a frame to the hand-written CUDA kernel on a GPU
-    (inference only: the kernel has no backward)."""
+    `pool_memory_feature`. Training method: `forward_train`.
+    `fused_xcorr=True` sends the three GroupDW correlations of a frame to
+    the hand-written CUDA kernel on a GPU (inference only: the kernel has
+    no backward)."""
 
     def __init__(self, mem_size: int = 4, fused_xcorr: bool = False,
                  width: int = 64, channels: int = 256):
@@ -170,6 +174,88 @@ class USOTNet(nn.Module):
         """PrPool (B, 7, 7, C) memory features from search features by a
         feature-axis bbox (ref: models.py:200-206)."""
         return prroi_pool_same_batch(xf, search_bbox, pooled=7)
+
+    # ---------------- training ----------------
+
+    def forward_train(self, template, search, label, reg_target, reg_weight,
+                      template_bbox, search_memory=None, search_bbox=None,
+                      cls_ratio=0.4, stage_bn_train: bool = False,
+                      remat: bool = False):
+        """Returns (cls_loss_ori, cls_loss_memory | None, reg_loss).
+
+        template: (B, 127, 127, 3); search: (B, 255, 255, 3);
+        label: (B, 25, 25); reg_target: (B, 25, 25, 4); reg_weight:
+        (B, 25, 25); template_bbox: (B, 4) on the template feature axis
+        (15x15); search_memory: (B, M, 255, 255, 3) or None (naive
+        Siamese phase); search_bbox: (B, 4) on the search feature axis.
+
+        Train-mode BN updates its running stats in place at every call,
+        so the modules run in `usot_tpu`'s order (template, search, then
+        the memory frames through the backbone and the neck; the offline
+        head on the search, then on the memory frames; the memory head
+        forward, then backward): the stats come out as flax's do. The
+        memory frames get their own backbone call, never one concatenated
+        with the search images, whose batch statistics would differ.
+        remat: the backbone's bottlenecks are recomputed in backward (see
+        `ResNetPlus2.forward`); the values are the same."""
+        if self.connect_model.fused_xcorr:
+            raise ValueError("forward_train needs fused_xcorr=False: the "
+                             "GroupDW kernel has no backward")
+        bn = True  # neck/head BN are always in train mode during training
+        head = self.connect_model
+        zf_raw = self.features(template, stage_bn_train=stage_bn_train,
+                               remat=remat)
+        xf_raw = self.features(search, stage_bn_train=stage_bn_train,
+                               remat=remat)
+        _, zf = self.neck(zf_raw, bn_train=bn, crop=True, pr_pool=True,
+                          bbox=template_bbox)
+        xf = self.neck(xf_raw, bn_train=bn, crop=False)
+
+        bbox_pred, cls_pred, cls_x, _ = head.offline(xf, zf, bn_train=bn)
+        reg_loss = iou_loss(bbox_pred, reg_target, reg_weight)
+        cls_loss_ori = weighted_bce(cls_pred, label)
+        if search_memory is None:
+            return cls_loss_ori, None, reg_loss
+
+        # ---- cycle memory branch (ref: models.py:232-286) ----
+        b, m = search_memory.shape[0], search_memory.shape[1]
+        mem_flat = search_memory.reshape((b * m,)
+                                         + tuple(search_memory.shape[2:]))
+        xf_mem = self.neck(
+            self.features(mem_flat, stage_bn_train=stage_bn_train,
+                          remat=remat),
+            bn_train=bn, crop=False)
+
+        # online kernel: the template frame's search feature pooled by
+        # the pseudo bbox; lanes b*m + j repeat sample b
+        spf = prroi_pool_same_batch(xf, search_bbox, pooled=7)
+        spf_rep = torch.repeat_interleave(spf, m, dim=0)
+        zf_rep = torch.repeat_interleave(zf, m, dim=0)
+
+        # forward-track into the memory frames with the offline module,
+        # and with the online module (one kernel per memory frame)
+        off_bbox, off_cls, fwd_x_store, _ = head.offline(xf_mem, zf_rep,
+                                                         bn_train=bn)
+        mem_cls = head.memory_cls(fwd_x_store, spf_rep, mem_size=1,
+                                  bn_train=bn)
+        s = off_cls.shape[1]  # score size
+        forward_res = (cls_ratio * off_cls.reshape(b, m, s * s)
+                       + (1.0 - cls_ratio) * mem_cls.reshape(b, m, s * s))
+        best_idx = torch.argmax(forward_res, dim=2)  # (B, M), first max
+
+        img_bbox = pred_offset_to_image_bbox(off_bbox, SEARCH_SIZE, s)
+        img_bbox = img_bbox.reshape(b, m, s * s, 4)
+        best_bbox = torch.gather(
+            img_bbox, 2, best_idx[:, :, None, None].expand(b, m, 1, 4))
+        pool_bbox = image_bbox_to_prpool_bbox(
+            best_bbox.reshape(b * m, 4), SEARCH_SIZE, SF_SIZE).detach()
+
+        pooled_mem = prroi_pool_same_batch(xf_mem, pool_bbox, pooled=7)
+        # backward-track to the template frame's search area
+        backward_res = head.memory_cls(cls_x, pooled_mem, mem_size=m,
+                                       bn_train=bn)
+        cls_loss_mem = weighted_bce(backward_res, label)
+        return cls_loss_ori, cls_loss_mem, reg_loss
 
 
 def build_usot(mem_size: int = 4, **kwargs) -> USOTNet:
