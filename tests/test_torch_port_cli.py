@@ -280,16 +280,51 @@ def test_existing_results_are_kept(env):
         env.port.pop(("OTB2015", "scan"))
 
 
+@pytest.mark.parametrize("tag", ["parity", "batch-refill", "batch-roi"])
+def test_bf16_engines_write_the_f32_layout(env, tmp_path, tag):
+    """`--dtype bfloat16` on the parity tracker and on the batch engine
+    with lane refill and with ROI streaming: the float32 run's files,
+    line for line, every box finite."""
+    f32 = _port(env, "OTB2015", tag, *OTB_RUNS[tag][1])
+    cli.main(["--dataset", "OTB2015", "--dataset_root", str(env.root),
+              "--result_dir", str(tmp_path), "--resume", str(env.pth),
+              "--device", "cpu", "--width", "8", "--channels", "32",
+              "--mem_size", str(env.kw["mem_size"]), "--chunk", "4",
+              "--batch", "3", "--dtype", "bfloat16", *OTB_RUNS[tag][1]])
+    ours = tmp_path / "OTB2015" / "USOT"
+    assert _files(ours) == _files(f32)
+    for rel in _files(f32):
+        rows = np.float64(_rows(ours / rel))
+        assert rows.shape == np.float64(_rows(f32 / rel)).shape, rel
+        assert np.all(np.isfinite(rows)), rel
+
+
 def test_cli_refuses_what_the_port_does_not_run(env, tmp_path):
+    """`--dtype bfloat16` and a flax `--resume` (`.msgpack`), refused
+    before the port had them, now run: the bf16 scan engine writes the
+    float32 run's files, line for line, with finite boxes; the fixture
+    read from its `.msgpack` writes the `.pth` run's files byte for byte.
+    The GOT-10k layout on the batch engine is still refused."""
+    from torch_port_common import FIXTURE
+
     base = ["--dataset", "OTB2015", "--dataset_root", str(env.root),
-            "--result_dir", str(tmp_path), "--device", "cpu", "--width",
-            "8", "--channels", "32"]
-    with pytest.raises(SystemExit, match="float32"):
-        cli.main(base + ["--dtype", "bfloat16"])
-    flax_ckpt = tmp_path / "w.msgpack"
-    flax_ckpt.write_bytes(b"")
-    with pytest.raises(SystemExit, match="flax"):
-        cli.main(base + ["--resume", str(flax_ckpt)])
+            "--device", "cpu", "--width", "8", "--channels", "32",
+            "--mem_size", str(env.kw["mem_size"]), "--chunk", "4",
+            "--batch", "3", "--engine", "scan"]
+    f32 = _port(env, "OTB2015", "scan", "--engine", "scan")
+    runs = {}
+    for tag, extra in (("bf16", ["--resume", str(env.pth), "--dtype",
+                                 "bfloat16"]),
+                       ("msgpack", ["--resume", FIXTURE])):
+        cli.main(base + ["--result_dir", str(tmp_path / tag)] + extra)
+        runs[tag] = tmp_path / tag / "OTB2015" / "USOT"
+        assert _files(runs[tag]) == _files(f32) == ["Car1.txt", "Walk2.txt"]
+    for rel in _files(f32):
+        want = (f32 / rel).read_text()
+        assert (runs["msgpack"] / rel).read_text() == want, rel
+        rows = np.float64(_rows(runs["bf16"] / rel))
+        assert rows.shape == np.float64(_rows(f32 / rel)).shape, rel
+        assert np.all(np.isfinite(rows)), rel
     with pytest.raises(SystemExit, match="GOT-10k"):
         cli.main(["--dataset", "GOT10K", "--dataset_root", str(env.root),
                   "--result_dir", str(tmp_path), "--device", "cpu",

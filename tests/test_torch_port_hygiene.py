@@ -1,5 +1,6 @@
-"""The port stands alone: it imports no JAX, no flax and nothing of
-`usot_tpu`, and its entry points never fall back to the CPU quietly."""
+"""The port stands alone: it imports no JAX, no flax, no msgpack and
+nothing of `usot_tpu`, and its entry points never fall back to the CPU
+quietly."""
 import ast
 import os
 import subprocess
@@ -16,7 +17,7 @@ PORT = os.path.join(ROOT, "usot_tpu_torch")
 def _forbidden(name: str) -> bool:
     # `usot_tpu_torch` starts with `usot_tpu`: match the package exactly
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "flax", "usot_tpu")
+    return top in ("jax", "jaxlib", "flax", "msgpack", "usot_tpu")
 
 
 def test_importing_every_module_loads_no_jax():
@@ -40,14 +41,17 @@ def test_importing_every_module_loads_no_jax():
     for name in ("tracker.tracker", "config.defaults", "train.losses",
                  "train.optim", "train.step", "train.checkpoint",
                  "train.schedulers", "utils.edict", "utils.meters",
-                 "data.shards", "cli.train"):
+                 "data.shards", "cli.train", "utils.msgpack",
+                 "tools.synthetic_shards", "tools.measure_bf16_drift",
+                 "tools.ab_card_layers"):
         assert "usot_tpu_torch." + name in loaded, name
     assert [m for m in loaded if _forbidden(m)] == []
 
 
 def test_training_imports_no_optional_library():
-    """The trainer and its modules import PyYAML only when a config file
-    is read, and neither OpenCV, Pillow nor tensorboardX at module level
+    """The trainer and its modules, the flax-checkpoint reader and the
+    synthetic-data tools import PyYAML only when a config file is read,
+    and neither OpenCV, Pillow, tensorboardX nor msgpack at module level
     (the GPU machine has none of them)."""
     script = textwrap.dedent("""
         import sys
@@ -56,8 +60,11 @@ def test_training_imports_no_optional_library():
         import usot_tpu_torch.data.shards
         import usot_tpu_torch.train.step
         import usot_tpu_torch.train.checkpoint
+        import usot_tpu_torch.utils.msgpack
+        import usot_tpu_torch.tools.synthetic_shards
+        import usot_tpu_torch.tools.measure_bf16_drift
         print(sorted(n for n in sys.modules if n.split(".")[0] in
-                     ("yaml", "cv2", "PIL", "tensorboardX")))
+                     ("yaml", "cv2", "PIL", "tensorboardX", "msgpack")))
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
@@ -77,7 +84,8 @@ def test_no_source_file_names_jax():
                   if f.endswith(".py")]
     assert len(paths) > 20
     for tool in ("bench_xcorr.py", "bench_memhead.py", "profile_engine.py",
-                 "timing.py"):
+                 "timing.py", "synthetic_shards.py", "measure_bf16_drift.py",
+                 "ab_card_layers.py"):
         assert os.path.join(PORT, "tools", tool) in paths
     for path in paths:
         with open(path) as f:

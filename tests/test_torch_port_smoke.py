@@ -11,6 +11,8 @@ and without JAX it runs as
 (`tests/conftest.py` imports JAX); the tests marked `gpu` skip without a
 card.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -31,10 +33,13 @@ def test_kernel_checks_pass_the_plain_version():
     records = chip_smoke.kernel_checks(xcorr_groupdw_reference,
                                        xcorr_groupdw_reference, CPU, c=16,
                                        timed=False)
-    assert len(records) == 15
+    assert len(records) == 17
     assert [r["out"][1:4] for r in records[:4]] == [
         [1, 25, 25], [7, 25, 25], [1, 27, 27], [7, 27, 27]]
-    assert [r["out"][:2] for r in records[4:6]] == [[32, 1], [32, 7]]
+    # the batch engine's shapes in f32, then in bf16
+    assert [r["out"][:2] for r in records[4:8]] == [[32, 1], [32, 7]] * 2
+    assert [r["shape"].split(", ")[-1] for r in records[4:8]] \
+        == ["f32"] * 2 + ["bf16"] * 2
     edges = [r["out"] for r in records if r["shape"].startswith("edge")]
     assert edges == [[2, 3, 25, 25, 40], [2, 3, 13, 16, 37],
                      [2, 3, 13, 16, 37], [2, 5, 27, 33, 64],
@@ -116,8 +121,8 @@ def test_grouped_conv_yardstick_of_the_single_scale_kernels():
 
 
 def test_bound_of_the_tools_shapes():
-    """K3 at B=32 in bf16 is bytes-bound (~24.4 MB); K2 at M=7 in bf16
-    is at the knee, just operations-bound (1.79 GFLOP)."""
+    """K3 at B=32 in bf16 is bytes-bound (~24.4 MB); so is K2 at M=7 in
+    bf16 (88.3 MB), its 1.79 GFLOP taking 1.8 us at the bf16 peak."""
     x = torch.empty(32, 29, 29, 256, dtype=torch.bfloat16)
     k3 = torch.empty(32, 5, 5, 256, dtype=torch.bfloat16)
     out3 = torch.empty(32, 25, 25, 256, dtype=torch.bfloat16)
@@ -126,7 +131,10 @@ def test_bound_of_the_tools_shapes():
     k2 = torch.empty(32, 7, 5, 5, 256, dtype=torch.bfloat16)
     out2 = torch.empty(32, 7, 25, 25, 256, dtype=torch.bfloat16)
     ms, by = chip_smoke.roofline([x, k2], out2, 25)
-    assert by == "operations" and ms == pytest.approx(2.6746e-2, rel=1e-3)
+    assert by == "bytes" and ms == pytest.approx(2.6366e-2, rel=1e-3)
+    # in f32: twice the bytes, still above the FP32 rate's 26.7 us
+    ms, by = chip_smoke.roofline([x.float(), k2.float()], out2.float(), 25)
+    assert by == "bytes" and ms == pytest.approx(5.2733e-2, rel=1e-3)
 
 
 def test_ptxas_report_fails_on_spills():
@@ -169,10 +177,121 @@ def test_engines_run_at_small_width():
                           "heads/cls_mem", "cls", "bbox_exponent",
                           "cls_mem", "bbox_exp"}
     assert all(set(r) == {"scaled_err", "max_abs_err", "scale"}
-               for r in heads.values())
+               | ({"overflow_differs"} if k != "bbox_exp" else set())
+               for k, r in heads.items())
     rec, launches = chip_smoke.run_scan_engine(model, CPU, n_frames=9,
                                                chunk=4, h=320, w=320)
     assert launches == 0 and rec["frames"] == 8
+
+
+def test_bf16_engine_runs_at_small_width():
+    """Phase 11 at small width: the batch engine in bf16 on the f32
+    model's weights, rings in bf16, lane 0 against the CPU, the f32
+    phase's figures beside its own."""
+    model, _, _ = chip_smoke.run_slice(CPU, width=8, channels=32,
+                                       n_frames=2, n_iter=1)
+    kw = dict(batch=2, n_frames=9, chunk=4, repeats=1, h=320, w=320,
+              ragged_frames=5)
+    f32_rec, _ = chip_smoke.run_batch_engine(model, CPU, **kw)
+    rec, launches = chip_smoke.run_bf16_engine(model, CPU, f32_rec, **kw)
+    assert launches == 0 and rec["frame_steps"] == 8
+    assert rec["dtype"] == rec["ring_dtype"] == "torch.bfloat16"
+    assert rec["lane0_tol"] == chip_smoke.BF16_LANE_TOL
+    assert rec["f32_phase7"]["ms_per_step_median"] \
+        == f32_rec["ms_per_step_median"]
+    heads = rec["lane0_heads_gpu_vs_cpu"]
+    assert set(heads) == {"search_features", "heads/cls",
+                          "heads/bbox_exponent", "heads/cls_mem", "cls",
+                          "bbox_exponent", "cls_mem", "bbox_exp"}
+    assert all(heads[k]["scaled_err"] <= chip_smoke.BF16_LANE_TOL
+               for k in heads if k.startswith(("search", "heads/")))
+    bn = rec["bn_rounding"]
+    assert bn["device"] == "cpu" and bn["cells"] == 4 * 64 * 9 * 9
+    assert bn["flip_share"] <= chip_smoke.BN_FLIP_SHARE
+    assert bn["max_ulps"] <= 1.0
+
+
+def test_bn_rounding_check_catches_a_second_rounding(monkeypatch):
+    """The BN check fails a BN that rounds its normalised input to bf16
+    before the affine step (two roundings, not flax's one)."""
+    from usot_tpu_torch.models import layers
+
+    def rounds_twice(self, x, train=False):
+        xf = x.float()
+        norm = ((xf - self.running_mean[:, None, None])
+                * torch.rsqrt(self.running_var + self.eps)[:, None, None])
+        return norm.to(x.dtype) * self.weight[:, None, None].to(x.dtype) \
+            + self.bias[:, None, None].to(x.dtype)
+
+    monkeypatch.setattr(layers.BatchNorm, "forward", rounds_twice)
+    with pytest.raises(RuntimeError, match="bf16 BN against flax"):
+        chip_smoke.bn_rounding_check(CPU)
+
+
+def test_fixture_tracks_in_both_dtypes():
+    """The trained fixture through the port's msgpack reader, tracked in
+    f32 and bf16; on the CPU the 'card' is the CPU, so its teacher-forced
+    gaps are zero and the deviations between the dtypes are recorded."""
+    rec = chip_smoke.run_fixture(CPU, n_frames=6)
+    assert rec["frames"] == 5
+    steps = rec["teacher_forced_step_max_gap"]
+    assert steps["float32"]["pos"] == steps["bfloat16"]["pos"] == 0.0
+    assert steps["bfloat16"]["own_pos"] > 0.0
+    assert rec["deviation_px"]["card_f32_vs_bf16"]["max"] > 0.0
+    assert all(np.isfinite(rec[f"center_error_vs_gt_cpu_{d}"])
+               for d in ("float32", "bfloat16"))
+
+
+def test_card_layer_ab_sides_compute_the_same():
+    """`tools.ab_card_layers`' plain side computes what the layers' kept
+    side does (bitwise on the CPU, where both take the same BN branch),
+    for contiguous and channels-last bf16 input, and `use("kept")` puts
+    the layers' own forwards back."""
+    from usot_tpu_torch.models import layers
+    from usot_tpu_torch.tools import ab_card_layers as ab
+
+    torch.manual_seed(0)
+    block = layers.ConvBN(16, 8, 3, padding=1, bias=True, relu=True).eval()
+    x = torch.randn(2, 16, 9, 9).to(torch.bfloat16)
+    try:
+        with torch.no_grad():
+            for layout in (torch.contiguous_format, torch.channels_last):
+                xi = x.contiguous(memory_format=layout)
+                ab.use("kept")
+                kept = block(xi)
+                ab.use("plain")
+                plain = block(xi)
+                torch.testing.assert_close(plain, kept, rtol=0, atol=0)
+    finally:
+        ab.use("kept")
+    assert layers.BatchNorm.forward is ab.KEPT["bn"]
+    assert layers.Conv2d.forward is ab.KEPT["conv"]
+
+
+def test_measure_bf16_drift_runs_at_small_width(tmp_path):
+    """`tools.measure_bf16_drift` end to end at w8c32 on the CPU: shards,
+    JAX's 7-epoch synthetic schedule cut to one batch per epoch, the saved
+    state dict, and both dtypes' trajectories with their deviations."""
+    from usot_tpu_torch.tools import measure_bf16_drift
+
+    rec = measure_bf16_drift.main([
+        "--device", "cpu", "--width", "8", "--channels", "32", "--samples",
+        "8", "--frames", "10", "--out", str(tmp_path / "out"), "--json",
+        str(tmp_path / "drift.json")])
+    assert rec["frames_tracked"] == 9
+    assert sorted(rec["loss_avg"]) == [str(e) for e in range(1, 8)]
+    assert all(np.isfinite(v) for v in rec["loss_avg"].values())
+    state = torch.load(rec["checkpoint"], weights_only=True)
+    assert all(t.dtype in (torch.float32, torch.int64)
+               for t in state.values())
+    for key in ("center_deviation_px", "size_deviation_px",
+                "score_deviation", "center_error_vs_gt_f32",
+                "center_error_vs_gt_bf16"):
+        assert set(rec[key]) == {"mean", "p95", "max"}, key
+        assert np.isfinite(rec[key]["max"]), key
+    assert (tmp_path / "drift.json").read_text().startswith('{"bf16_drift"')
+    assert not [d for d in os.listdir(tmp_path / "out")
+                if d.startswith("tmp")]  # the shard set is removed
 
 
 def test_protocols_run_at_small_width(tmp_path):
@@ -333,6 +452,18 @@ def test_single_scale_kernels_on_gpu():
             fn(x.cpu(), kk.cpu())
         with pytest.raises(TypeError, match="float32 or bfloat16"):
             fn(x.half(), kk.half())
+
+
+@pytest.mark.gpu
+def test_bf16_batchnorm_rounds_once_on_gpu():
+    """Eval-mode BN's card branch (`batch_norm_elemt` with the kept
+    `rsqrt(var + eps)`) on bf16 input against flax's `_normalize` written
+    out and rounded once: at most `BN_FLIP_SHARE` of the cells one bf16
+    ulp apart, none further (the CPU branch's test is
+    `test_torch_port_bf16.py::test_batchnorm_rounds_once_as_flax`)."""
+    rec = chip_smoke.bn_rounding_check(_cuda())
+    assert rec["device"] == "cuda" and rec["max_ulps"] <= 1.0
+    assert rec["flip_share"] <= chip_smoke.BN_FLIP_SHARE
 
 
 @pytest.mark.gpu

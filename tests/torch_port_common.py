@@ -66,13 +66,13 @@ MOMENTUM, WEIGHT_DECAY, LAYERS_LR = 0.9, 1e-4, 0.1
 
 def train_batch(seed, b, mem=None):
     """A numpy batch in the shard layout (channel-flat uint8 images) of
-    `b` `chip_smoke.training_sample`s; cycle-memory with `mem` frames."""
-    import chip_smoke
+    `b` `training_sample`s (`usot_tpu_torch.tools.synthetic_shards`);
+    cycle-memory with `mem` frames."""
     from usot_tpu_torch.data.shards import _pack_sample
+    from usot_tpu_torch.tools.synthetic_shards import training_sample
 
     rng = np.random.default_rng(seed)
-    packed = [_pack_sample(chip_smoke.training_sample(rng, mem is not None,
-                                                      mem or 0))
+    packed = [_pack_sample(training_sample(rng, mem is not None, mem or 0))
               for _ in range(b)]
     return {k: np.stack([p[k] for p in packed]) for k in packed[0]}
 

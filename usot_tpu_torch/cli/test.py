@@ -11,7 +11,10 @@ raw result files in the reference's layouts, which
   else: <result_dir>/<ds>/<arch>/<video>.txt (1-indexed x, y)
 Runs on the GPU unless `--device cpu` is given; without a GPU and without
 it, it raises. Frame files are decoded by `data.imageio.read_image`
-(OpenCV or Pillow).
+(OpenCV or Pillow). `--dtype bfloat16` runs every engine in bfloat16
+over float32 weights (`build_usot(dtype=...)`); `--resume` takes a torch
+`.pth` or a flax checkpoint (`.msgpack`, `.ckpt`: any other suffix), as
+the JAX CLI's `load_variables` does.
 """
 from __future__ import annotations
 
@@ -48,12 +51,12 @@ def parse_args(argv=None):
     parser.add_argument("--arch", default="USOT")
     parser.add_argument("--resume", default="var/snapshot/USOT_star.pth",
                         help="a PyTorch state dict in the reference's "
-                        "layout (a published USOT*.pth; nested under "
-                        "'state_dict' and 'module.'-style prefixes are "
-                        "accepted); loaded strictly. A missing file "
-                        "means random weights with calibrated BN stats. "
-                        "Flax .msgpack checkpoints of usot_tpu are not "
-                        "read yet (they come with the training port)")
+                        "layout (.pth/.model/.tar: a published USOT*.pth; "
+                        "nested under 'state_dict' and 'module.'-style "
+                        "prefixes are accepted) or a flax checkpoint of "
+                        "usot_tpu (any other suffix: .msgpack, .ckpt); "
+                        "loaded strictly. A missing file means random "
+                        "weights with calibrated BN stats")
     parser.add_argument("--dataset", default="VOT2018")
     parser.add_argument("--dataset_root", default=None)
     # NOT the reference's `type=bool` (scripts/test_usot.py:33), which
@@ -86,8 +89,8 @@ def parse_args(argv=None):
                         "(required for --roi)")
     parser.add_argument("--dtype", default="float32",
                         choices=["float32", "bfloat16"],
-                        help="model compute dtype; the port runs float32 "
-                        "only")
+                        help="model compute dtype (every engine); the "
+                        "parameters stay float32")
     parser.add_argument("--width", default=64, type=int,
                         help="backbone stage width base (dev-scale models)")
     parser.add_argument("--channels", default=256, type=int,
@@ -518,23 +521,20 @@ def track_dataset_vot_batched(model, runner, dataset, args):
 
 
 def load_model(args, device):
-    """The model of `args` on `device`: `--resume`'s state dict, loaded
-    strictly, or (no such file) seeded random weights with BN stats
-    calibrated so tracking stays finite, as the JAX CLI does."""
+    """The model of `args` on `device`, in `--dtype`: `--resume`'s weights
+    (a torch state dict or a flax checkpoint), loaded strictly, or (no
+    such file) seeded random weights with BN stats calibrated so tracking
+    stays finite, as the JAX CLI does."""
     from usot_tpu_torch.models.calibrate import calibrate_batch_stats
-    from usot_tpu_torch.models.convert import strip_prefix
     from usot_tpu_torch.models.usot import build_usot, init_model
+    from usot_tpu_torch.train.checkpoint import load_model_state
 
     model = build_usot(mem_size=args.mem_size, width=args.width,
-                       channels=args.channels, fused_xcorr=True)
+                       channels=args.channels, fused_xcorr=True,
+                       dtype=torch.bfloat16 if args.dtype == "bfloat16"
+                       else torch.float32)
     if args.resume and os.path.exists(args.resume):
-        if args.resume.endswith(".msgpack"):
-            raise SystemExit(f"{args.resume}: flax checkpoints are not read "
-                             "by the port yet; pass a PyTorch .pth state "
-                             "dict")
-        state = torch.load(args.resume, map_location="cpu")
-        state = state.get("state_dict", state)
-        model.load_state_dict(strip_prefix(state))
+        model.load_state_dict(load_model_state(args.resume))
         return model.to(device).eval()
     print(f"warning: checkpoint {args.resume} not found; random init")
     init_model(model, torch.Generator().manual_seed(0), device=device)
@@ -547,12 +547,9 @@ def main(argv=None):
     from usot_tpu_torch.tracker.tracker import USOTTracker
 
     args = parse_args(argv)
-    if args.dtype != "float32":
-        raise SystemExit(f"--dtype {args.dtype}: the port runs float32 "
-                         "only")
     device = resolve_device(args.device)
     if device.type == "cuda":
-        # the tracker's numerics are f32: cuDNN defaults to TF32
+        # the float32 path's numerics are f32: cuDNN defaults to TF32
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     model = load_model(args, device)

@@ -2,13 +2,16 @@
 scripts/train_usot.py).
 
     python -m usot_tpu_torch.cli.train --cfg experiments/train/USOT.yaml \
-        --shards <root> [--device cpu] [--resume checkpoint_eN.pth]
+        --shards <root> [--device cpu] [--resume checkpoint_eN.pth|.ckpt]
 
 Epoch loop with the reference schedule: naive Siamese until MEMORY_EPOCH,
 cycle memory after; backbone layers 1-3 unfrozen at UNFIX_EPOCH (a new
 optimizer: every group's momentum restarts, as JAX's `tx.init` does);
 warmup + log LR decay; checkpoints from epoch 5. Runs on the GPU unless
 `--device cpu` is given; without a GPU and without it, it raises.
+`--resume` takes the port's `checkpoint_eN.pth` or `usot_tpu`'s
+`checkpoint_eN.ckpt` (its weights, BN stats and optax momentum) and
+continues at epoch N+1.
 
 Batches stream from shard sets in `usot_tpu.cli.make_shards`'s format
 (`<root>/epoch_XXX/`). The live loader (`data/{augment,dataset,loader}.py`)
@@ -61,7 +64,8 @@ def parse_args(argv=None):
                         "(torch.utils.checkpoint): less activation memory "
                         "for one extra backbone forward")
     parser.add_argument("--resume", default=None,
-                        help="checkpoint_eN.pth to resume from "
+                        help="checkpoint_eN.pth (the port's) or "
+                        "checkpoint_eN.ckpt (usot_tpu's) to resume from "
                         "(continues at epoch N+1; overrides TRAIN.RESUME)")
     parser.add_argument("--stop-after-epoch", type=int, default=None,
                         help="stop cleanly after this epoch WITHOUT "

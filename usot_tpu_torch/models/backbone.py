@@ -16,11 +16,13 @@ the reference state dict (`conv1`, `bn1`, `layer1.0.conv1`, ...,
 """
 from __future__ import annotations
 
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from usot_tpu_torch.models.layers import BatchNorm, ConvBN, to_nchw, to_nhwc
+from usot_tpu_torch.models.layers import (BatchNorm, Conv2d, ConvBN,
+                                         compute_dtype, to_nchw, to_nhwc)
 
 LAYERS = (3, 4, 6)
 
@@ -31,13 +33,13 @@ class Bottleneck(nn.Module):
                  downsample_kernel: int | None = None,
                  downsample_padding: int = 0):
         super().__init__()
-        self.conv1 = nn.Conv2d(cin, planes, 1, bias=False)
+        self.conv1 = Conv2d(cin, planes, 1, bias=False)
         self.bn1 = BatchNorm(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride=stride,
-                               padding=conv2_padding,
-                               dilation=conv2_dilation, bias=False)
+        self.conv2 = Conv2d(planes, planes, 3, stride=stride,
+                            padding=conv2_padding,
+                            dilation=conv2_dilation, bias=False)
         self.bn2 = BatchNorm(planes)
-        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
+        self.conv3 = Conv2d(planes, planes * 4, 1, bias=False)
         self.bn3 = BatchNorm(planes * 4)
         self.downsample = None
         if downsample_kernel is not None:
@@ -73,12 +75,16 @@ def _stage(cin: int, planes: int, blocks: int, stride: int, dilation: int):
 
 
 class ResNetPlus2(nn.Module):
-    """(N, H, W, 3) NHWC -> layer3 feature (N, H/8, W/8, 16*width)."""
+    """(N, H, W, 3) NHWC -> layer3 feature (N, H/8, W/8, 16*width), in
+    the compute dtype: the stem casts its input to it (flax's
+    `StemConvBN`, `usot_tpu/models/backbone.py:57-59`), and every later
+    block computes in the dtype of its input."""
 
-    def __init__(self, width: int = 64):
+    def __init__(self, width: int = 64, dtype: torch.dtype = torch.float32):
         super().__init__()
         w = width
-        self.conv1 = nn.Conv2d(3, w, 7, stride=2, padding=0, bias=False)
+        self.dtype = dtype
+        self.conv1 = Conv2d(3, w, 7, stride=2, padding=0, bias=False)
         self.bn1 = BatchNorm(w)
         self.layer1 = _stage(w, w, LAYERS[0], 1, 1)
         self.layer2 = _stage(4 * w, 2 * w, LAYERS[1], 2, 1)
@@ -92,7 +98,8 @@ class ResNetPlus2(nn.Module):
         keeps only the blocks' inputs and recomputes one block at a time
         (its train-mode BNs update their running stats again; the
         training step puts them back)."""
-        x = F.relu(self.bn1(self.conv1(to_nchw(x)), stem_bn_train))
+        x = to_nchw(x).to(compute_dtype(self.dtype, self.conv1.weight))
+        x = F.relu(self.bn1(self.conv1(x), stem_bn_train))
         x = F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
         for layer in (self.layer1, self.layer2, self.layer3):
             for block in layer:
@@ -107,9 +114,9 @@ class ResNetPlus2(nn.Module):
 class ResNet50(nn.Module):
     """The reference's wrapper level (`features.features.*` keys)."""
 
-    def __init__(self, width: int = 64):
+    def __init__(self, width: int = 64, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.features = ResNetPlus2(width)
+        self.features = ResNetPlus2(width, dtype)
 
     def forward(self, x, stem_bn_train: bool = False,
                 stage_bn_train: bool = False, remat: bool = False):

@@ -8,6 +8,8 @@ module sequence of the JAX package's `USOTNet.forward_train`
 (`usot_tpu/models/usot.py:222-281`) without the losses, on the same
 seeded numpy inputs, so both packages calibrate to the same stats; the
 port's BatchNorm updates them with flax's rule (see models/layers.py).
+A bf16 model calibrates in bf16, as JAX's does (`calibrate.py:42`): the
+inputs go in float32 and the stem casts them; the stats stay float32.
 """
 from __future__ import annotations
 

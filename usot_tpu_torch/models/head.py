@@ -18,11 +18,19 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from usot_tpu_torch.models.layers import BatchNorm, ConvBN, to_nchw, to_nhwc
+from usot_tpu_torch.models.layers import (BatchNorm, Conv2d, ConvBN,
+                                         cast_param, derived, to_nchw,
+                                         to_nhwc)
 from usot_tpu_torch.ops.xcorr import xcorr_depthwise, xcorr_groupdw
 
 # (reference name, (H, W) dilation) of the three scales
 SCALES = (("matrix11", (1, 1)), ("matrix12", (2, 1)), ("matrix21", (1, 2)))
+
+
+def _tenth(x):
+    """0.1 * x with JAX's weak-typed scalar: the constant rounded to x's
+    dtype first (0.10009765625 in bfloat16), as `0.1 * x` is in flax."""
+    return x * float(torch.tensor(0.1, dtype=x.dtype))
 
 
 class Matrix(nn.Module):
@@ -51,19 +59,26 @@ class GroupDW(nn.Module):
         self.weight = nn.Parameter(torch.ones(3))
         self.fused = fused
 
+    def scales(self, dtype):
+        """The softmax of the scale weights in float32, cast to the
+        compute dtype, in which they multiply the kernels (or the
+        correlations), as flax does; computed once per checkpoint outside
+        autograd (`derived`)."""
+        return derived(self, "weight", ("softmax", dtype),
+                       lambda w: torch.softmax(w, dim=0).to(dtype))
+
     def forward(self, zs, xs):
         """zs: 3 x (B, hk, wk, C); xs: 3 x (B, hx, wx, C) -> (B, Ho, Wo, C)."""
-        w = torch.softmax(self.weight, dim=0)
+        w = self.scales(zs[0].dtype)
         if self.fused:
             # one kernel launch: weights folded into the kernels
             # (w * xcorr(x, k) == xcorr(x, w * k)); the kernel takes
             # contiguous NHWC, and conv outputs may be NCHW underneath
-            ks = [(z[:, None] * w[i].to(z.dtype)).contiguous()
-                  for i, z in enumerate(zs)]
+            ks = [(z[:, None] * w[i]).contiguous() for i, z in enumerate(zs)]
             return xcorr_groupdw([x.contiguous() for x in xs], ks)[:, 0]
         res = 0.0
         for i in range(3):
-            res = res + w[i].to(xs[i].dtype) * xcorr_depthwise(xs[i], zs[i])
+            res = res + w[i] * xcorr_depthwise(xs[i], zs[i])
         return res
 
     def multi(self, zs, xs, mem_size: int):
@@ -71,11 +86,11 @@ class GroupDW(nn.Module):
 
         zs: 3 x (B*M, hk, wk, C); xs: 3 x (B, hx, wx, C).
         Returns (B, M, Ho, Wo, C)."""
-        w = torch.softmax(self.weight, dim=0)
+        w = self.scales(zs[0].dtype)
         ks = []
         for i, z in enumerate(zs):
             k = z.reshape((xs[i].shape[0], mem_size) + tuple(z.shape[1:]))
-            ks.append((k * w[i].to(k.dtype)).contiguous())
+            ks.append((k * w[i]).contiguous())
         return xcorr_groupdw([x.contiguous() for x in xs], ks)
 
 
@@ -109,8 +124,8 @@ class Tower(nn.Module):
         super().__init__()
         self.num = num
         for i in range(num):
-            self.add_module(str(3 * i), nn.Conv2d(channels, channels, 3,
-                                                  padding=1, bias=True))
+            self.add_module(str(3 * i), Conv2d(channels, channels, 3,
+                                               padding=1, bias=True))
             self.add_module(str(3 * i + 1), BatchNorm(channels))
 
     def forward(self, x, bn_train: bool = False):
@@ -134,9 +149,9 @@ class BoxTowerReg(nn.Module):
         self.bbox_tower = Tower(channels, tower_num)
         self.cls_tower = Tower(channels, tower_num)
         self.cls_memory_tower = Tower(channels, tower_num)
-        self.bbox_pred = nn.Conv2d(channels, 4, 3, padding=1)
-        self.cls_pred = nn.Conv2d(channels, 1, 3, padding=1)
-        self.cls_memory_pred = nn.Conv2d(channels, 1, 3, padding=1)
+        self.bbox_pred = Conv2d(channels, 4, 3, padding=1)
+        self.cls_pred = Conv2d(channels, 1, 3, padding=1)
+        self.cls_memory_pred = Conv2d(channels, 1, 3, padding=1)
         self.adjust = nn.Parameter(0.1 * torch.ones(1))
         self.bias = nn.Parameter(torch.ones(1, 4, 1, 1))
         self.fused_xcorr = fused_xcorr
@@ -171,10 +186,12 @@ class BoxTowerReg(nn.Module):
         reg_dw = self.reg_dw(reg_z, reg_x)
 
         x_reg = self.bbox_tower(to_nchw(reg_dw), bn_train)
-        x_bbox = torch.exp(self.adjust * self.bbox_pred(x_reg) + self.bias)
+        adjust = cast_param(self, "adjust", x_reg.dtype)
+        bias = cast_param(self, "bias", x_reg.dtype)
+        x_bbox = torch.exp(adjust * self.bbox_pred(x_reg) + bias)
 
         c = self.cls_tower(to_nchw(cls_dw), bn_train)
-        cls = 0.1 * self.cls_pred(c)
+        cls = _tenth(self.cls_pred(c))
         return to_nhwc(x_bbox), to_nhwc(cls), cls_x, reg_x
 
     def memory_cls(self, cls_x, memory_kernel, mem_size: int,
@@ -192,7 +209,7 @@ class BoxTowerReg(nn.Module):
         cls_mem_dw = self.memory_correlation(cls_x, cls_mem_zs, mem_size)
         fused = self.conf_fusion(cls_mem_dw, bn_train)  # (B, Ho, Wo, C)
         c_mem = self.cls_memory_tower(to_nchw(fused), bn_train)
-        return to_nhwc(0.1 * self.cls_memory_pred(c_mem))
+        return to_nhwc(_tenth(self.cls_memory_pred(c_mem)))
 
     def memory_correlation(self, cls_x, cls_mem_zs, mem_size: int):
         """GroupDW of the search encodings against the M queue kernels
@@ -234,7 +251,7 @@ class BoxTowerReg(nn.Module):
         conf = conf / torch.sum(conf, dim=1, keepdim=True)
         value = y[:, c:].reshape(b, m, c, h, w)
         c_mem = self.cls_memory_tower(torch.sum(conf * value, dim=1))
-        return to_nhwc(0.1 * self.cls_memory_pred(c_mem))
+        return to_nhwc(_tenth(self.cls_memory_pred(c_mem)))
 
 
 # -- folded inference-head weights (counterpart of

@@ -20,7 +20,8 @@ from usot_tpu_torch.core.device import resolve_device
 from usot_tpu_torch.core.geometry import feature_axis, score_grid
 from usot_tpu_torch.models.backbone import ResNet50
 from usot_tpu_torch.models.head import BoxTowerReg, GroupDW
-from usot_tpu_torch.models.layers import BatchNorm
+from usot_tpu_torch.models.layers import (BatchNorm, Conv2d, cast_param,
+                                         compute_dtype)
 from usot_tpu_torch.models.neck import AdjustLayer
 from usot_tpu_torch.ops.prroi import prroi_pool_same_batch
 from usot_tpu_torch.train.losses import iou_loss, weighted_bce
@@ -62,13 +63,18 @@ class USOTNet(nn.Module):
     `pool_memory_feature`. Training method: `forward_train`.
     `fused_xcorr=True` sends the three GroupDW correlations of a frame to
     the hand-written CUDA kernel on a GPU (inference only: the kernel has
-    no backward)."""
+    no backward). `dtype`: the compute dtype (flax's `USOTNet.dtype`);
+    torch.bfloat16 runs the network in bfloat16 over float32 parameters
+    and BN statistics (see `models/layers.py`). Inputs may come in any
+    float dtype: the stem and PrRoIPool cast them; outputs come in the
+    compute dtype."""
 
     def __init__(self, mem_size: int = 4, fused_xcorr: bool = False,
-                 width: int = 64, channels: int = 256):
+                 width: int = 64, channels: int = 256,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.mem_size = mem_size  # training's memory frames; not read here
-        self.features = ResNet50(width)
+        self.features = ResNet50(width, dtype)
         self.neck = AdjustLayer(16 * width, channels)
         self.connect_model = BoxTowerReg(channels, 4, fused_xcorr)
 
@@ -77,6 +83,32 @@ class USOTNet(nn.Module):
         state = {k: v if torch.is_tensor(v) else torch.tensor(np.asarray(v))
                  for k, v in state_dict.items()}
         return super().load_state_dict(state, strict=strict, assign=assign)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The compute dtype (see `models.layers.compute_dtype`)."""
+        stem = self.features.features
+        return compute_dtype(stem.dtype, stem.conv1.weight)
+
+    @torch.no_grad()
+    def cast_weights(self) -> "USOTNet":
+        """Cast every convolution's weight and bias and the bbox head's
+        `adjust` and `bias` to the compute dtype now, and take GroupDW's
+        softmax, once per checkpoint (a cast is a no-op in the parameters'
+        own dtype): the engines and runners call it at construction, so
+        no frame step launches either. A copy is made again only after
+        its parameter changes."""
+        dtype = self.dtype
+        for module in self.modules():
+            if isinstance(module, Conv2d):
+                cast_param(module, "weight", dtype)
+                if module.bias is not None:
+                    cast_param(module, "bias", dtype)
+        for name in ("adjust", "bias"):
+            cast_param(self.connect_model, name, dtype)
+        for dw in (self.connect_model.cls_dw, self.connect_model.reg_dw):
+            dw.scales(dtype)
+        return self
 
     # ---------------- inference API ----------------
 
@@ -258,10 +290,14 @@ class USOTNet(nn.Module):
         return cls_loss_ori, cls_loss_mem, reg_loss
 
 
-def build_usot(mem_size: int = 4, **kwargs) -> USOTNet:
+def build_usot(mem_size: int = 4, dtype: torch.dtype = torch.float32,
+               **kwargs) -> USOTNet:
     """The model definition, on the CPU with torch's default init; give it
-    weights with `init_model` or `load_state_dict`."""
-    return USOTNet(mem_size=mem_size, **kwargs)
+    weights with `init_model` or `load_state_dict`. `dtype` is the compute
+    dtype (torch.float32 or torch.bfloat16); the parameters are float32
+    either way. Never `model.to(torch.bfloat16)`: that would round the BN
+    statistics."""
+    return USOTNet(mem_size=mem_size, dtype=dtype, **kwargs)
 
 
 def _lecun_normal_(w, generator):

@@ -21,7 +21,8 @@ once, one `nvcc` each.
 
 The wrappers take CUDA tensors only and raise on anything their kernel
 does not take; the plain versions for CPU tensors are in
-`usot_tpu_torch.ops.xcorr`. Each counts its launches in `.launches`.
+`usot_tpu_torch.ops.xcorr`. Each counts its launches in `.launches`, and
+by input dtype in `.launches_by_dtype`.
 """
 from __future__ import annotations
 
@@ -175,6 +176,13 @@ def _launch(name: str, dtype, pointers, dims, device):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
+def _count(wrapper, dtype):
+    """One launch of `wrapper`'s kernel on inputs of `dtype`."""
+    wrapper.launches += 1
+    key = str(dtype).replace("torch.", "")
+    wrapper.launches_by_dtype[key] = wrapper.launches_by_dtype.get(key, 0) + 1
+
+
 def _check_groupdw(xs, ks):
     if len(xs) != 3 or len(ks) != 3:
         raise ValueError("GroupDW takes 3 search maps and 3 kernel stacks")
@@ -207,7 +215,7 @@ def xcorr_groupdw_cuda(xs, ks):
         dims += [x.shape[1], x.shape[2], k.shape[2], k.shape[3]]
     _launch("usot_xcorr_groupdw", xs[0].dtype,
             [t.data_ptr() for t in (*xs, *ks, out)], dims, xs[0].device)
-    xcorr_groupdw_cuda.launches += 1
+    _count(xcorr_groupdw_cuda, xs[0].dtype)
     return out
 
 
@@ -243,7 +251,7 @@ def xcorr_depthwise_multi_cuda(x, kernel):
     _launch("usot_xcorr_depthwise_multi", x.dtype,
             [x.data_ptr(), kernel.data_ptr(), out.data_ptr()], dims,
             x.device)
-    xcorr_depthwise_multi_cuda.launches += 1
+    _count(xcorr_depthwise_multi_cuda, x.dtype)
     return out
 
 
@@ -258,14 +266,12 @@ def xcorr_depthwise_pairwise_cuda(x, kernel):
     _launch("usot_xcorr_depthwise", x.dtype,
             [x.data_ptr(), kernel.data_ptr(), out.data_ptr()], dims,
             x.device)
-    xcorr_depthwise_pairwise_cuda.launches += 1
+    _count(xcorr_depthwise_pairwise_cuda, x.dtype)
     return out
 
 
 _WRAPPERS = {"K1": xcorr_groupdw_cuda, "K2": xcorr_depthwise_multi_cuda,
              "K3": xcorr_depthwise_pairwise_cuda}
-for _fn in _WRAPPERS.values():
-    _fn.launches = 0
 
 
 def launch_counts() -> dict:
@@ -273,6 +279,15 @@ def launch_counts() -> dict:
     return {tag: fn.launches for tag, fn in _WRAPPERS.items()}
 
 
+def launch_dtypes() -> dict:
+    """{"K1": {"bfloat16": n, ...}, ...}: the launches by input dtype."""
+    return {tag: dict(fn.launches_by_dtype) for tag, fn in _WRAPPERS.items()}
+
+
 def reset_launch_counts():
     for fn in _WRAPPERS.values():
         fn.launches = 0
+        fn.launches_by_dtype = {}
+
+
+reset_launch_counts()

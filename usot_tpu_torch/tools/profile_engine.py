@@ -3,18 +3,21 @@
     python -m usot_tpu_torch.tools.profile_engine [--batch 32]
                                                   [--frames 16]
                                                   [--fused-head]
+                                                  [--dtype bfloat16]
 
 `BatchScanEngine` at `bench.py`'s configuration (480x640, instance 255,
 the triangle-wave video on every lane, frames staged on the card) with
 the full-width model `chip_smoke.py` builds (width 64, channels 256,
-queue 7, random seeded weights, BN stats calibrated by 10 passes, K1 for
-the correlations). After init, a warm chunk of `--frames` steps (during
-which `FlopCounterMode` counts the aten ops' FLOPs from their shapes;
+queue 7, random seeded weights, BN stats calibrated by 10 passes in
+float32, K1 for the correlations), in `--dtype` (float32 with TF32 off,
+or bfloat16 over the same float32 weights). After init, a warm chunk of
+`--frames` steps (during which `FlopCounterMode` counts the aten ops'
+FLOPs from their shapes;
 the hand-written kernels are not aten ops), then one staged chunk under
 `torch.profiler`. Prints one JSON line: frames/s, aten GFLOP per step,
 and per step the wall and device-busy ms, the device idle share, the
-kernel launches, K1's device ms and the kernels with the most device
-time. Needs a GPU.
+kernel launches (in all and by kernel), K1's device ms and the kernels
+with the most device time. Needs a GPU.
 """
 from __future__ import annotations
 
@@ -54,9 +57,10 @@ def device_profile(run, n_steps: int) -> dict:
         wall = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_name = defaultdict(float)
+    by_name, count = defaultdict(float), defaultdict(int)
     for e in kernels:
         by_name[e.name] += e.time_range.elapsed_us() / 1e3
+        count[e.name] += 1
     busy = sum(by_name.values())
     n = n_steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
@@ -68,14 +72,25 @@ def device_profile(run, n_steps: int) -> dict:
         "k1_ms_per_step": sum(v for k, v in by_name.items()
                               if K1_KERNEL.search(k)) / n,
         "top_kernels_ms_per_step": [[k[:90], v / n] for k, v in top],
+        "launches_per_step_by_kernel": [
+            [k[:90], c / n] for k, c in sorted(count.items(),
+                                               key=lambda kv: -kv[1])[:25]],
     }
 
 
-def profile(batch: int, n: int, fused_head: bool) -> dict:
+def staged_engine(batch: int, n: int, fused_head: bool,
+                  dtype: torch.dtype = torch.float32):
+    """The engine of the module note on the GPU, its state after init,
+    and `2 * n` frames per lane staged on the card in chunks of `n`.
+    Returns (engine, state, staged)."""
     device = resolve_device(None)
     model = build_usot(mem_size=7, fused_xcorr=True)
     init_model(model, torch.Generator().manual_seed(0), device=device)
     calibrate_batch_stats(model, n_iter=10)
+    if dtype != torch.float32:  # the same weights, computing in `dtype`
+        weights = model.state_dict()
+        model = build_usot(mem_size=7, fused_xcorr=True, dtype=dtype)
+        model.load_state_dict(weights)
     p = TrackerConfig()
     p.instance_size = p.small_sz
     p.renew()
@@ -89,7 +104,12 @@ def profile(batch: int, n: int, fused_head: bool) -> dict:
     state = engine.init_batch(videos, ModelRunner(model, device=device))
     single = np.stack(frames[1:])
     lanes = np.broadcast_to(single[None], (batch,) + single.shape)
-    staged = engine.stage_frames(lanes, np.full(batch, 2 * n))
+    return engine, state, engine.stage_frames(lanes, np.full(batch, 2 * n))
+
+
+def profile(batch: int, n: int, fused_head: bool,
+            dtype: torch.dtype = torch.float32) -> dict:
+    engine, state, staged = staged_engine(batch, n, fused_head, dtype)
     with FlopCounterMode(display=False) as flops:   # the warm chunk
         state, _, _, _ = engine.track_staged(state, staged[:1])
 
@@ -99,8 +119,9 @@ def profile(batch: int, n: int, fused_head: bool) -> dict:
 
     prof = device_profile(run, n)
     return {"card": card_line(), "engine": "BatchScanEngine",
-            "batch": batch, "instance": p.instance_size,
-            "fused_head": fused_head,
+            "batch": batch, "instance": engine.p.instance_size,
+            "fused_head": fused_head, "dtype": str(dtype),
+            "ring_dtype": str(state.mem_enc[0].dtype),
             "frames_per_s": batch * 1e3 / prof["wall_ms_per_step"],
             "aten_gflop_per_step": {
                 str(k): v / n / 1e9
@@ -114,11 +135,15 @@ def main(argv=None) -> dict:
     ap.add_argument("--frames", type=int, default=16)
     ap.add_argument("--fused-head", action="store_true",
                     help="run the heads on folded BN weights")
+    ap.add_argument("--dtype", default="float32",
+                    choices=["float32", "bfloat16"],
+                    help="the engine's compute dtype")
     args = ap.parse_args(argv)
     # f32 as chip_smoke.py runs it: cuDNN would use TF32 by default
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    out = profile(args.batch, args.frames, args.fused_head)
+    out = profile(args.batch, args.frames, args.fused_head,
+                  getattr(torch, args.dtype))
     print(json.dumps(out), flush=True)
     return out
 

@@ -24,8 +24,13 @@ of `tracker/lockstep.py` stand on (`run_chunk(donate=False)`,
 `make_lane_state(s)`, `splice_lane(s)`) and ROI streaming with its
 exactness replay (`track_batch_roi`; `engine.py:898-1443`).
 
-Not carried over: `impl="vmap"`, `unroll`, `mesh` and `carry_dtype` (the
-port runs f32).
+The network runs in the model's compute dtype (`USOTNet.dtype`,
+float32 or bfloat16); the template, the init anchors and the memory
+rings are carried in it; positions, sizes, confidences and the
+postprocess stay float32 (`engine.py:340-365`).
+
+Not carried over: `impl="vmap"`, `unroll`, `mesh` and `carry_dtype` (no
+caller passes a carry dtype other than the compute dtype).
 """
 from __future__ import annotations
 
@@ -303,20 +308,27 @@ class ScanEngine:
     model: a `USOTNet` with its weights (moved to `device`); device None
     means the GPU (raises without one unless device="cpu"). The crop is
     `subwindow_gather`, JAX's choice off the TPU. fused_head: run the
-    heads on folded BN weights (`fold_inference_head`, computed once
-    here)."""
+    heads on folded BN weights (`fold_inference_head`, folded in float32
+    and cast once to the compute dtype here)."""
 
     def __init__(self, model: USOTNet, p: TrackerConfig, im_h: int,
                  im_w: int, max_frames: int = 4096, chunk: int = 64,
                  fused_head: bool = False, device=None):
         self.device = resolve_device(device)
-        self.model = model.to(self.device).eval()
+        self.model = model.to(self.device).eval().cast_weights()
+        self.dtype = model.dtype
         self.p = p
         self.im_h, self.im_w = im_h, im_w
         self.max_frames = max_frames
         self.chunk = chunk
-        self.fused = fold_inference_head(model.connect_model) \
-            if fused_head else None
+        self.fused = None
+        if fused_head:
+            folded = fold_inference_head(model.connect_model)
+            self.fused = {
+                "encoders": [(w.to(self.dtype), b.to(self.dtype))
+                             for w, b in folded["encoders"]],
+                "conf_value": tuple(t.to(self.dtype)
+                                    for t in folded["conf_value"])}
         self._consts = make_consts(p, self.device)
         # the frame buffer's image-coordinate origin: (0, 0) for full
         # frames (ROI streaming passes its windows' origins)
@@ -348,8 +360,7 @@ class ScanEngine:
                                   s_x, avg_b, p.instance_size, valid_h=vh,
                                   valid_w=vw, origin=origin_b)
 
-        dtype = next(self.model.parameters()).dtype
-        return scale_z, self.model.search_features(x_crop.to(dtype))
+        return scale_z, self.model.search_features(x_crop.to(self.dtype))
 
     def _heads(self, carry: EngineState, xf):
         """Heads of one frame step on the search features `xf` against
@@ -357,7 +368,7 @@ class ScanEngine:
         (cls, bbox, cls_mem)."""
         p = self.p
         model = self.model
-        dtype = next(model.parameters()).dtype
+        dtype = self.dtype
         picks = _queue_picks(carry.mem_conf, carry.mem_idx, carry.mem_len,
                              p.mem_queue_size)               # (B, Nq - 2)
         queue_enc = tuple(

@@ -2,7 +2,10 @@
 
 Counterpart of `usot_tpu/tracker/runner.py`: the same host API (numpy
 images in; features stay on the device; response maps come back as
-float64 numpy), run eagerly under `torch.inference_mode()`.
+float64 numpy), run eagerly under `torch.inference_mode()`. The model
+runs in its compute dtype (`USOTNet.dtype`), as JAX's runner does:
+images go in as float32 and the stem casts them; features come back in
+the compute dtype.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ class ModelRunner:
             weights = weights.state_dict()
         if weights is not None:
             model.load_state_dict(weights)
-        self.model = model.to(self.device).eval()
+        self.model = model.to(self.device).eval().cast_weights()
         self.mem_queue_size = mem_queue_size
 
     def _images(self, x_bhwc) -> torch.Tensor:
