@@ -80,7 +80,26 @@ Phases, each of which raises on failure (exit code != 0):
      (same loss within 1e-5, lower peak) and accum=2; a `torch.profiler`
      breakdown of an unfrozen cycle-memory step. Training builds the
      model unfused, so it launches none of the three kernels (recorded
-     as `launches_by_path["training"]`).
+     as `launches_by_path["training"]`);
+ 12. the trainer's default path (run after phase 10): `cli.train.train`
+     with no shard set, in bf16 (`--dtype bfloat16`, float32 parameters,
+     BN stats and momentum) at phase 10's width and schedule, from the
+     live loader (`USOTDataset` through the threaded `DataLoader`, the
+     host's cores up to 8 threads) over `tools/train_synthetic.py`'s
+     dataset made in memory (24 videos of 12 511x511 frames, handed to
+     the dataset through its reader: the card has no image decoder): the
+     record's schedule fields, checkpoints, a resume from epoch 5 within
+     1e-2 of the unbroken run's epoch 6; one bf16 step of three programs
+     at B=1 against the CPU's bf16, within twice the CPU's own
+     float32-vs-bf16 gap; ms per step, samples/s and peak memory of the
+     naive and cycle-memory bf16 steps, frozen and unfrozen, beside
+     phase 10's float32 ones; a profiler breakdown of the bf16
+     unfrozen cycle-memory step; the live loader's samples/s alone
+     (naive and cycle memory, 1 and N threads) and pipelined through
+     `device_prefetch` into the bf16 step, with the card's idle share
+     (computed from the profiled step's device time and the pipelined
+     wall time). No correlation kernel launched
+     (`launches_by_path["training_bf16"]`).
 The line before the last is the `kernels` JSON object, the last
 {"ok": true, "device": {...}}. Without CUDA the script exits with an
 error and prints no result. It imports nothing of JAX.
@@ -1382,10 +1401,12 @@ def training_config(out, width, channels, batch, mem, end_epoch=6,
     return cfg
 
 
-def train_args(shards, **kw):
+def train_args(shards=None, **kw):
+    """The trainer's arguments: from the shard set `shards`, or (None)
+    from the live loader; `kw` sets others."""
     from usot_tpu_torch.cli.train import parse_args
 
-    args = parse_args(["--shards", shards])
+    args = parse_args([] if shards is None else ["--shards", shards])
     for k, v in kw.items():
         setattr(args, k, v)
     return args
@@ -1560,6 +1581,32 @@ def _profile_breakdown(step, batch, device, top=12):
             "top_ops_ms": dict(top_ops)}
 
 
+def check_schedule(record, cfg, iters):
+    """The trainer's record of `training_config`'s 6 epochs: each epoch's
+    phase, unfreeze, lambda_1, cls_ratio, lr and step count as the
+    schedule has them, finite losses, checkpoints of epochs 5 and 6
+    only."""
+    from usot_tpu_torch.train.schedulers import build_lr_spaces
+    from usot_tpu_torch.train.step import epoch_weights
+
+    tc = cfg.USOT.TRAIN
+    spaces = build_lr_spaces(tc, tc.END_EPOCH)
+    check(sorted(map(int, record["epochs"])) == list(range(1, 7)),
+          f"epochs run: {sorted(record['epochs'])}")
+    for e in range(1, 7):
+        r = record["epochs"][str(e)]
+        l1, _, ratio = epoch_weights(tc, e)
+        want = {"cycle_memory": e >= 3, "unfix": e >= 5,
+                "lambda_1": l1, "cls_ratio": ratio, "n_iters": iters,
+                "lr": float(spaces[e - 1])}
+        got = {k: r[k] for k in want}
+        check(got == want, f"epoch {e}: record {got}, expected {want}")
+        check(all(np.isfinite(r["losses"])), f"epoch {e}: {r['losses']}")
+    saved = sorted(os.listdir(cfg.CHECKPOINT_DIR))
+    check(saved == ["checkpoint_e5.pth", "checkpoint_e6.pth"],
+          f"checkpoints: {saved}")
+
+
 def run_training(device, width=64, channels=256, batch=12, mem=4, iters=2,
                  timing_steps=3, out_dir=None):
     """Phase 10: the trainer (`usot_tpu_torch.cli.train.train`) through
@@ -1570,8 +1617,6 @@ def run_training(device, width=64, channels=256, batch=12, mem=4, iters=2,
 
     from usot_tpu_torch.cli.train import train
     from usot_tpu_torch.models.usot import build_usot, init_model
-    from usot_tpu_torch.train.schedulers import build_lr_spaces
-    from usot_tpu_torch.train.step import epoch_weights
 
     rec = {"width": width, "channels": channels, "batch": batch,
            "memory_frames": mem}
@@ -1590,23 +1635,8 @@ def run_training(device, width=64, channels=256, batch=12, mem=4, iters=2,
         launches = launch_counts()  # read just after the path
         check(all(n == 0 for n in launches.values()),
               f"training launched a correlation kernel: {launches}")
-        tc = cfg.USOT.TRAIN
-        spaces = build_lr_spaces(tc, tc.END_EPOCH)
-        check(sorted(map(int, full["epochs"])) == list(range(1, 7)),
-              f"epochs run: {sorted(full['epochs'])}")
-        for e in range(1, 7):
-            r = full["epochs"][str(e)]
-            l1, _, ratio = epoch_weights(tc, e)
-            want = {"cycle_memory": e >= 3, "unfix": e >= 5,
-                    "lambda_1": l1, "cls_ratio": ratio, "n_iters": iters,
-                    "lr": float(spaces[e - 1])}
-            got = {k: r[k] for k in want}
-            check(got == want, f"epoch {e}: record {got}, expected {want}")
-            check(all(np.isfinite(r["losses"])), f"epoch {e}: {r['losses']}")
+        check_schedule(full, cfg, iters)
         snap = cfg.CHECKPOINT_DIR
-        saved = sorted(f for f in os.listdir(snap))
-        check(saved == ["checkpoint_e5.pth", "checkpoint_e6.pth"],
-              f"checkpoints: {saved}")
         rec["losses"] = {e: r["losses"] for e, r in full["epochs"].items()}
         rec["epoch_s"] = {e: r["seconds"] for e, r in full["epochs"].items()}
 
@@ -1661,6 +1691,364 @@ def run_training(device, width=64, channels=256, batch=12, mem=4, iters=2,
             _fresh_step(model, state, True, True), batches[True], device)
         print(json.dumps({"profile_cycle_unfrozen":
                           rec["profile_cycle_unfrozen"]}), flush=True)
+    return rec, launches
+
+
+# ------------------------------------------------- bf16, the live loader
+
+def _bf16_fresh_step(kw, state, device, cycle_memory, unfix):
+    """`_fresh_step` on a bf16 model (`build_usot(**kw)`, float32
+    parameters) on `device`, loaded with `state`."""
+    from usot_tpu_torch.models.usot import build_usot
+
+    bf = build_usot(dtype=torch.bfloat16, **kw).to(device)
+    return bf, _fresh_step(bf, state, cycle_memory, unfix)
+
+
+def _flat(arrays):
+    return np.concatenate([np.ravel(x) for x in arrays]).astype(np.float64)
+
+
+def _rel_rms(a, b):
+    a, b = _flat(a), _flat(b)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def _stage_of(name):
+    """The part of the model a parameter trains with: a backbone stage
+    (`features.features.layerN`), the neck or the head."""
+    parts = name.split(".")
+    return ".".join(parts[:3]) if parts[0] == "features" else parts[0]
+
+
+def _cosine(a, b):
+    """Cosine between two gradients (lists of arrays); 0 if either is
+    zero."""
+    a, b = _flat(a), _flat(b)
+    na, nb = np.linalg.norm(a), np.linalg.norm(b)
+    return float(a @ b / (na * nb)) if na and nb else 0.0
+
+
+def _loss_terms(m, samples, unfix, device):
+    """The naive phase's loss terms (cls_loss_ori, reg_loss) of
+    `m.forward_train` on each sample alone, without a step."""
+    from usot_tpu_torch.train.step import images_f32
+
+    dtype = next(m.parameters()).dtype
+    out = []
+    with torch.no_grad():
+        for s in samples:
+            b = _step_batch([s], device)
+            img = {k: images_f32(b[k]).to(dtype)
+                   for k in ("template", "search")}
+            l_ori, _, l_reg = m.forward_train(
+                img["template"], img["search"], b["label"],
+                b["reg_target"], b["reg_weight"], b["template_bbox"],
+                stage_bn_train=unfix)
+            out += [float(l_ori), float(l_reg)]
+    return out
+
+
+def bf16_training_vs_cpu(kw, state, device, margin=2.0, accuracy=1.25,
+                         loss_samples=12):
+    """One bf16 step of three programs from the same weights on `device`
+    and on the CPU, B=1 (naive and cycle memory frozen, naive unfrozen),
+    with the CPU's float32 step beside them. Relative RMS gaps over the
+    losses, the gradients and the BN running stats:
+
+    - agreement: the card's bf16 within `margin` times the CPU's own
+      float32-vs-bf16 gap of the CPU's bf16. Two bf16 routes that round
+      at the same points but sum in other orders carry independent
+      rounding noise of about that gap each;
+    - accuracy: the card's bf16 no further from the CPU's float32 than
+      `accuracy` times the CPU's bf16 is, for the gradients and the BN
+      stats (10^4 values and more). The step's losses are one number in
+      effect (the reg loss carries ~99 % of their norm), too few for
+      a ratio of two rounding errors to be held at 1.25; they are held
+      over `loss_samples` samples instead, each alone through the naive
+      forward (no argmax: the memory loss's argmax over bf16 maps flips
+      on a one-ulp difference), frozen and unfrozen, at `margin`;
+    - direction: over each stage's trainable parameters (`_stage_of`),
+      the card's bf16 gradient has 0.5-2x the norm of the CPU's bf16
+      one and a positive cosine to the CPU's float32 one, at least half
+      the CPU bf16's where that is 0.5 or more. bf16 gradients at B=1
+      are noisy (relative RMS 0.2-1.4 from float32); in the unfrozen
+      stages they are mostly rounding noise (cosine 0.06-0.14 at full
+      width, 0.09-0.21 at w8c32: train-mode BN's backward cancels most
+      of the bf16-rounded gradient it receives), so two bf16 routes'
+      cosines there scatter apart. A gap limit alone would pass a zero
+      gradient (relative RMS 1); a zero gradient fails the norm, a
+      sign-flipped one the cosine."""
+    from usot_tpu_torch.models.usot import build_usot
+
+    cpu = torch.device("cpu")
+    mem = kw["mem_size"]
+    rng = np.random.default_rng(7)
+    samples = {cyc: [training_sample(rng, cyc, mem)] for cyc in (False, True)}
+    extra = [training_sample(rng, False, mem) for _ in range(loss_samples)]
+    programs = (("card_bf16", device, torch.bfloat16),
+                ("cpu_bf16", cpu, torch.bfloat16),
+                ("cpu_f32", cpu, torch.float32))
+    out, failed = {}, []
+
+    def hold(label, part, gaps, acc=accuracy):
+        if not (np.isfinite(gaps["card_vs_cpu_bf16"])
+                and gaps["card_vs_cpu_bf16"]
+                <= margin * gaps["cpu_f32_vs_bf16"]):
+            failed.append((label, part, "agreement", gaps))
+        if acc is not None and not (gaps["card_bf16_vs_cpu_f32"]
+                                    <= acc * gaps["cpu_f32_vs_bf16"]):
+            failed.append((label, part, "accuracy", gaps))
+
+    for label, cyc, unfix in (("naive_frozen", False, False),
+                              ("cycle_frozen", True, False),
+                              ("naive_unfrozen", False, True)):
+        res = {}
+        for tag, dev, dtype in programs:
+            m = build_usot(dtype=dtype, **kw).to(dev)
+            step = _fresh_step(m, state, cyc, unfix)
+            t0 = time.perf_counter()
+            met = step(_step_batch(samples[cyc], dev), 0.005, 0.5)
+            sync(dev)
+            secs = time.perf_counter() - t0
+            grads, stats = _grads_and_stats(m)
+            res[tag] = {"losses": [float(met[k]) for k in sorted(met)],
+                        "grads": {n: g.numpy() for n, g in grads.items()},
+                        "stats": [stats[n].numpy() for n in sorted(stats)],
+                        "s": secs}
+            if not cyc:
+                m.load_state_dict(state)
+                t0 = time.perf_counter()
+                res[tag]["loss_terms"] = _loss_terms(m, extra, unfix, dev)
+                res[tag]["loss_terms_s"] = time.perf_counter() - t0
+        rec = {f"{tag}_s": r["s"] for tag, r in res.items()}
+        rec["loss"] = {t: r["losses"] for t, r in res.items()}
+        names = sorted(res["cpu_f32"]["grads"])
+        for r in res.values():
+            r["grads"] = [r["grads"][n] for n in names]
+        parts = ["losses", "grads", "stats"] + (["loss_terms"] if not cyc
+                                                else [])
+        for part in parts:
+            card, cb, cf = (res[t][part] for t in ("card_bf16", "cpu_bf16",
+                                                   "cpu_f32"))
+            gaps = {"card_vs_cpu_bf16": _rel_rms(card, cb),
+                    "cpu_f32_vs_bf16": _rel_rms(cf, cb),
+                    "card_bf16_vs_cpu_f32": _rel_rms(card, cf)}
+            gaps["accuracy_ratio"] = gaps["card_bf16_vs_cpu_f32"] \
+                / max(gaps["cpu_f32_vs_bf16"], 1e-30)
+            rec[part] = gaps
+            hold(label, part, gaps, {"losses": None,
+                                     "loss_terms": margin}.get(part,
+                                                               accuracy))
+        if not cyc:
+            rec["loss_terms_s"] = {t: r["loss_terms_s"]
+                                   for t, r in res.items()}
+        cos = {}
+        for stage in sorted({_stage_of(n) for n in names}):
+            idx = [i for i, n in enumerate(names) if _stage_of(n) == stage]
+            card, cb, cf = ([res[t]["grads"][i] for i in idx]
+                            for t in ("card_bf16", "cpu_bf16", "cpu_f32"))
+            c = cos[stage] = {
+                "card_bf16": _cosine(card, cf), "cpu_bf16": _cosine(cb, cf),
+                "norm_ratio": np.linalg.norm(_flat(card))
+                / max(np.linalg.norm(_flat(cb)), 1e-30)}
+            floor = 0.5 * c["cpu_bf16"] if c["cpu_bf16"] >= 0.5 else 0.0
+            if not (c["card_bf16"] > floor
+                    and 0.5 <= c["norm_ratio"] <= 2.0):
+                failed.append((label, stage, "direction", c))
+        rec["grad_cosine_to_cpu_f32"] = cos
+        out[label] = rec
+    print(json.dumps({"training_bf16_gpu_vs_cpu": out}), flush=True)
+    check(not failed, f"bf16 training, the card against the CPU: {failed}")
+    return out
+
+
+def live_loader_rates(cfg, reader, batch, workers, n_batches=4):
+    """Samples per second of the live loader alone (`DataLoader` over
+    `USOTDataset`, host only), naive and cycle memory, at 1 and
+    `workers` threads, over `n_batches` batches: the wait for the first
+    (an epoch's cold start: the threads' first calls) apart from the
+    rate of the rest."""
+    from usot_tpu_torch.data.dataset import USOTDataset
+    from usot_tpu_torch.data.loader import DataLoader
+
+    cfg = copy.deepcopy(cfg)
+    cfg.USOT.DATASET.GOT10K.USE = n_batches * batch
+    out = {}
+    for cyc in (False, True):
+        for n in sorted({1, workers}):
+            ds = USOTDataset(cfg, seed=1, reader=reader)
+            ds.cycle_memory = cyc
+            stamps = [time.perf_counter()]
+            for _ in DataLoader(ds, batch, num_workers=n):
+                stamps.append(time.perf_counter())
+            check(len(stamps) == n_batches + 1, f"loader: {len(stamps)}")
+            key = f"{'cycle' if cyc else 'naive'}_workers_{n}"
+            out[key] = {"first_batch_s": stamps[1] - stamps[0],
+                        "samples_per_s": (n_batches - 1) * batch
+                        / (stamps[-1] - stamps[1])}
+    print(json.dumps({"live_loader": out}), flush=True)
+    return out
+
+
+def pipelined_steps(kw, state, cfg, reader, device, batch, workers,
+                    n_steps=8, warm_batch=None):
+    """The trainer's inner loop on the bf16 cycle-memory unfrozen step:
+    the live loader (`workers` threads) through `device_prefetch` into
+    the step. The step is warmed on `warm_batch` first, the timing
+    starts once the prefetch queue has filled, and the dataset holds
+    more batches than the timed `n_steps` take, so the loader works
+    through every timed step as it does through an epoch. Returns host
+    ms per step, the step's wait for the next batch, and samples/s."""
+    from usot_tpu_torch.data.dataset import USOTDataset
+    from usot_tpu_torch.data.loader import DataLoader
+    from usot_tpu_torch.data.shards import device_prefetch
+
+    bf, step = _bf16_fresh_step(kw, state, device, True, True)
+    if warm_batch is not None:
+        for _ in range(2):
+            step(warm_batch, 0.005, 0.5)
+        sync(device)
+    cfg = copy.deepcopy(cfg)
+    cfg.USOT.DATASET.GOT10K.USE = (n_steps + 6) * batch
+    ds = USOTDataset(cfg, seed=2, reader=reader)
+    ds.cycle_memory = True
+    batches = device_prefetch(DataLoader(ds, batch, num_workers=workers),
+                              device)
+    t0 = time.perf_counter()
+    b = next(batches)  # fills the prefetch queue
+    first = time.perf_counter() - t0
+    waits, ms = [], []
+    for i in range(n_steps):
+        t0 = time.perf_counter()
+        if i:
+            b = next(batches)
+        t1 = time.perf_counter()
+        step(b, 0.005, 0.5)  # ends in the NaN gate's host sync
+        sync(device)
+        waits.append((t1 - t0) * 1e3)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    batches.close()
+    del bf
+    return {"first_batches_s": first,
+            "ms_per_step": statistics.median(ms),
+            "samples_per_s": batch * 1e3 / statistics.median(ms),
+            "loader_wait_ms": statistics.median(waits),
+            "ms_all": ms, "loader_wait_all": waits}
+
+
+def run_training_bf16(device, width=64, channels=256, batch=12, mem=4,
+                      iters=2, workers=None, timing_steps=3, f32_steps=None,
+                      n_videos=24, pipe_steps=8, out_dir=None):
+    """Phase 12: the trainer's default path (`cli.train.train` with no
+    shard set) in bf16 on `tools/train_synthetic.py`'s dataset made in
+    memory (`n_videos` videos of 12 frames, read through the dataset's
+    reader), `workers` loader threads (default: the host's cores up to
+    8): the staged schedule, its resume, three bf16 steps against the
+    CPU, the bf16 steps' times beside phase 10's float32 ones
+    (`f32_steps`), the live loader's rates alone and pipelined into the
+    step. Returns (record, kernel launches on the training path)."""
+    import tempfile
+
+    from usot_tpu_torch.cli.train import train
+    from usot_tpu_torch.models.usot import build_usot, init_model
+    from usot_tpu_torch.tools.synthetic_crop511 import (gen_dataset,
+                                                        use_dataset)
+
+    workers = workers or min(8, os.cpu_count() or 1)
+    rec = {"width": width, "channels": channels, "batch": batch,
+           "memory_frames": mem, "workers": workers, "dtype": "bfloat16"}
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        t0 = time.perf_counter()
+        crop_dir, ann_path, reader = gen_dataset(tmp, n_videos=n_videos)
+        rec["data_s"] = time.perf_counter() - t0
+
+        def config(tag):
+            cfg = training_config(os.path.join(tmp, tag), width, channels,
+                                  batch, mem)
+            cfg.WORKERS = workers
+            return use_dataset(cfg, crop_dir, ann_path, iters * batch)
+
+        cfg = config("full")
+        reset_launch_counts()  # the bf16 training path starts here
+        t0 = time.perf_counter()
+        full = train(cfg, train_args(dtype="bfloat16"),
+                     device, reader=reader)
+        rec["schedule_s"] = time.perf_counter() - t0
+        launches = launch_counts()  # read just after the path
+        check(all(n == 0 for n in launches.values()),
+              f"bf16 training launched a correlation kernel: {launches}")
+        check(full["dtype"] == "bfloat16", f"record dtype {full['dtype']}")
+        check_schedule(full, cfg, iters)
+        rec["losses"] = {e: r["losses"] for e, r in full["epochs"].items()}
+        rec["epoch_s"] = {e: r["seconds"] for e, r in full["epochs"].items()}
+
+        resumed = train(config("resumed"), train_args(
+            dtype="bfloat16", resume=os.path.join(
+                cfg.CHECKPOINT_DIR, "checkpoint_e5.pth")),
+            device, reader=reader)
+        a = np.array(full["epochs"]["6"]["losses"])
+        b = np.array(resumed["epochs"]["6"]["losses"])
+        delta = float(np.max(np.abs(a - b) / np.abs(a)))
+        # bf16's ulp is 2^-8: a nondeterministic sum that rounds apart in
+        # the first step moves the second one's loss by ~1e-3
+        check(sorted(resumed["epochs"]) == ["6"] and delta <= 1e-2,
+              f"bf16 resume: epoch-6 losses {b} vs unbroken {a} ({delta})")
+        rec["resume_max_rel_loss_delta"] = delta
+        print(json.dumps({"training_bf16_schedule": rec}), flush=True)
+
+        kw = {"mem_size": mem, "width": width, "channels": channels}
+        model = build_usot(**kw)  # phase 10's weights
+        init_model(model, torch.Generator().manual_seed(0), device=device)
+        state = copy.deepcopy(model.state_dict())
+        del model
+        rec["gpu_vs_cpu"] = bf16_training_vs_cpu(kw, state, device)
+
+        rng = np.random.default_rng(6)  # phase 10's batches
+        batches = {cyc: _step_batch([training_sample(rng, cyc, mem)
+                                     for _ in range(batch)], device)
+                   for cyc in (False, True)}
+        times = {}
+        for label, cyc, unfix in (("naive_frozen", False, False),
+                                  ("naive_unfrozen", False, True),
+                                  ("cycle_frozen", True, False),
+                                  ("cycle_unfrozen", True, True)):
+            bf, step = _bf16_fresh_step(kw, state, device, cyc, unfix)
+            ms, peak, loss = _timed_steps(step, batches[cyc], timing_steps,
+                                          device)
+            times[label] = {"ms_per_step": ms,
+                            "samples_per_s": batch * 1e3 / ms,
+                            "peak_bytes": peak, "first_loss": loss}
+            if f32_steps and label in f32_steps:
+                times[label]["f32_ms_per_step"] = \
+                    f32_steps[label]["ms_per_step"]
+                times[label]["f32_peak_bytes"] = f32_steps[label]["peak_bytes"]
+            check(np.isfinite(loss), f"bf16 {label}: loss {loss}")
+            print(json.dumps({f"bf16_{label}": times[label]}), flush=True)
+            del bf, step
+        rec["steps"] = times
+        if device.type == "cuda":
+            bf, step = _bf16_fresh_step(kw, state, device, True, True)
+            rec["profile_cycle_unfrozen"] = _profile_breakdown(
+                step, batches[True], device)
+            print(json.dumps({"profile_bf16_cycle_unfrozen":
+                              rec["profile_cycle_unfrozen"]}), flush=True)
+            del bf, step
+        rec["live_loader"] = live_loader_rates(cfg, reader, batch, workers)
+        pipe = pipelined_steps(kw, state, cfg, reader, device, batch,
+                               workers, pipe_steps, batches[True])
+        step_ms = times["cycle_unfrozen"]["ms_per_step"]
+        pipe["step_alone_ms"] = step_ms
+        pipe["loader_keeps_up"] = bool(pipe["ms_per_step"]
+                                       <= 1.1 * step_ms)
+        if "profile_cycle_unfrozen" in rec:
+            busy = rec["profile_cycle_unfrozen"]["device_ms"]
+            pipe["device_busy_ms"] = busy
+            pipe["idle_share"] = max(0.0, 1.0 - busy / pipe["ms_per_step"])
+            pipe["idle_share_step_alone"] = max(0.0, 1.0 - busy / step_ms)
+        rec["pipelined"] = pipe
+        print(json.dumps({"live_loader_pipelined": pipe}), flush=True)
+        del batches
     return rec, launches
 
 
@@ -1738,6 +2126,8 @@ def main() -> int:
     fixture_rec = run_fixture(device)
     fixture_k1 = launch_counts()["K1"]  # read just after the path
     train_rec, train_launches = run_training(device)
+    bf16_train_rec, bf16_train_launches = run_training_bf16(
+        device, f32_steps=train_rec["steps"])
 
     def pick(records, tag, shape):
         return next(r for r in records
@@ -1749,7 +2139,8 @@ def main() -> int:
     k1_line = kernel_line("K1", pick(
         k1_records, "K1", "engine, instance 255, B=32, M=7, C=256, f32"),
         sum(k1_paths.values()), {**k1_paths, "tools": tool_counts["K1"],
-                                 "training": train_launches["K1"]})
+                                 "training": train_launches["K1"],
+                                 "training_bf16": bf16_train_launches["K1"]})
     k1_bf16 = pick(k1_records, "K1",
                    "engine, instance 255, B=32, M=7, C=256, bf16")
     k1_line["bf16"] = {k: k1_bf16[k] for k in (
@@ -1760,12 +2151,16 @@ def main() -> int:
         k1_line,
         kernel_line("K2", pick(single_records, "K2",
                                "B=32, M=7, 29x29 / 5x5, C=256, bf16"),
-                    tool_counts["K2"], {"tools": tool_counts["K2"],
-                                        "training": train_launches["K2"]}),
+                    tool_counts["K2"], {
+                        "tools": tool_counts["K2"],
+                        "training": train_launches["K2"],
+                        "training_bf16": bf16_train_launches["K2"]}),
         kernel_line("K3", pick(single_records, "K3",
                                "B=32, 29x29 / 5x5, C=256, bf16"),
-                    tool_counts["K3"], {"tools": tool_counts["K3"],
-                                        "training": train_launches["K3"]}),
+                    tool_counts["K3"], {
+                        "tools": tool_counts["K3"],
+                        "training": train_launches["K3"],
+                        "training_bf16": bf16_train_launches["K3"]}),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched")
@@ -1776,7 +2171,9 @@ def main() -> int:
                "tools": tool_records, "batch_engine": batch_rec,
                "scan_engine": scan_rec, "protocols": proto_rec,
                "bf16_batch_engine": bf16_rec, "fixture": fixture_rec,
-               "training": train_rec,
+               "training": train_rec, "training_bf16": bf16_train_rec,
+               "live_loader": {"alone": bf16_train_rec["live_loader"],
+                               "pipelined": bf16_train_rec["pipelined"]},
                "seconds": time.perf_counter() - t_start}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

@@ -43,7 +43,8 @@ def test_importing_every_module_loads_no_jax():
                  "train.schedulers", "utils.edict", "utils.meters",
                  "data.shards", "cli.train", "utils.msgpack",
                  "tools.synthetic_shards", "tools.measure_bf16_drift",
-                 "tools.ab_card_layers"):
+                 "tools.ab_card_layers", "data.cvops", "data.augment",
+                 "data.dataset", "data.loader", "cli.make_shards"):
         assert "usot_tpu_torch." + name in loaded, name
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -63,6 +64,9 @@ def test_training_imports_no_optional_library():
         import usot_tpu_torch.utils.msgpack
         import usot_tpu_torch.tools.synthetic_shards
         import usot_tpu_torch.tools.measure_bf16_drift
+        import usot_tpu_torch.data.dataset
+        import usot_tpu_torch.data.loader
+        import usot_tpu_torch.cli.make_shards
         print(sorted(n for n in sys.modules if n.split(".")[0] in
                      ("yaml", "cv2", "PIL", "tensorboardX", "msgpack")))
     """)
@@ -139,8 +143,13 @@ def test_entry_points_raise_without_a_gpu(tmp_path):
 
 def test_only_imageio_touches_an_image_library():
     """Frame decoding is `data/imageio.py`'s alone: no other module of
-    the port imports OpenCV or Pillow (the GPU machine has neither), and
-    importing the port loads neither."""
+    the port imports OpenCV or Pillow (the GPU machine has neither), not
+    even inside a function, the live data pipeline (its cv2 calls are
+    `data/cvops.py`'s) and `cli/make_shards.py` among them; and importing
+    the port loads neither."""
+    for name in ("cvops", "augment", "dataset", "loader"):
+        assert os.path.exists(os.path.join(PORT, "data", name + ".py"))
+    assert os.path.exists(os.path.join(PORT, "cli", "make_shards.py"))
     for dirpath, _, files in os.walk(PORT):
         for f in files:
             path = os.path.join(dirpath, f)

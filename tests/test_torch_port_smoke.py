@@ -268,16 +268,20 @@ def test_card_layer_ab_sides_compute_the_same():
     assert layers.Conv2d.forward is ab.KEPT["conv"]
 
 
-def test_measure_bf16_drift_runs_at_small_width(tmp_path):
-    """`tools.measure_bf16_drift` end to end at w8c32 on the CPU: shards,
-    JAX's 7-epoch synthetic schedule cut to one batch per epoch, the saved
-    state dict, and both dtypes' trajectories with their deviations."""
+@pytest.mark.parametrize("data", ["crop511", "shards"])
+def test_measure_bf16_drift_runs_at_small_width(tmp_path, data):
+    """`tools.measure_bf16_drift` end to end at w8c32 on the CPU, on
+    `tools/train_synthetic.py`'s dataset through the live loader (the
+    default) or on the synthetic shard set: JAX's 7-epoch synthetic
+    schedule cut to one batch per epoch, the saved state dict, and both
+    dtypes' trajectories with their deviations."""
     from usot_tpu_torch.tools import measure_bf16_drift
 
     rec = measure_bf16_drift.main([
         "--device", "cpu", "--width", "8", "--channels", "32", "--samples",
         "8", "--frames", "10", "--out", str(tmp_path / "out"), "--json",
-        str(tmp_path / "drift.json")])
+        str(tmp_path / "drift.json"), "--data", data])
+    assert rec["recipe"]["data"] == data
     assert rec["frames_tracked"] == 9
     assert sorted(rec["loss_avg"]) == [str(e) for e in range(1, 8)]
     assert all(np.isfinite(v) for v in rec["loss_avg"].values())
@@ -291,7 +295,7 @@ def test_measure_bf16_drift_runs_at_small_width(tmp_path):
         assert np.isfinite(rec[key]["max"]), key
     assert (tmp_path / "drift.json").read_text().startswith('{"bf16_drift"')
     assert not [d for d in os.listdir(tmp_path / "out")
-                if d.startswith("tmp")]  # the shard set is removed
+                if d.startswith("tmp")]  # the data are removed
 
 
 def test_protocols_run_at_small_width(tmp_path):
@@ -355,6 +359,82 @@ def test_training_runs_at_small_width(tmp_path):
     held = ("naive_frozen", "cycle_frozen", "naive_unfrozen_f64")
     assert all(rec["gpu_vs_cpu"][k]["max_scaled_grad_err"]["err"] == 0.0
                for k in held)
+
+
+def _check_bf16_training_record(rec, launches):
+    assert launches == {"K1": 0, "K2": 0, "K3": 0}
+    assert rec["dtype"] == "bfloat16"
+    assert sorted(rec["losses"]) == [str(e) for e in range(1, 7)]
+    assert all(len(v) == 2 for v in rec["losses"].values())
+    assert rec["resume_max_rel_loss_delta"] <= 1e-2
+    assert set(rec["gpu_vs_cpu"]) == {"naive_frozen", "cycle_frozen",
+                                      "naive_unfrozen"}
+    stages = {"connect_model", "neck"}
+    for k, r in rec["gpu_vs_cpu"].items():
+        assert ("loss_terms" in r) == k.startswith("naive"), k
+        assert set(r["grad_cosine_to_cpu_f32"]) == stages | (
+            {f"features.features.layer{i}" for i in (1, 2, 3)}
+            if k.endswith("unfrozen") else set()), k
+    assert set(rec["steps"]) == {"naive_frozen", "naive_unfrozen",
+                                 "cycle_frozen", "cycle_unfrozen"}
+    assert all(r["samples_per_s"] > 0 and "f32_ms_per_step" in r
+               for r in rec["steps"].values())
+    assert set(rec["live_loader"]) == {
+        "naive_workers_1", "naive_workers_2", "cycle_workers_1",
+        "cycle_workers_2"}
+    assert all(r["samples_per_s"] > 0 and r["first_batch_s"] > 0
+               for r in rec["live_loader"].values())
+    assert rec["pipelined"]["ms_per_step"] > 0
+
+
+def test_training_bf16_runs_at_small_width(tmp_path):
+    """Phase 12 at w8c32, B=2, 2 memory frames on the CPU: the trainer
+    with no shard set in bf16 from the live loader over three in-memory
+    videos of `tools/train_synthetic.py`'s dataset, 2 threads; its
+    resume (exact on the CPU), the step against the CPU (the same device
+    here: gaps 0), the timed programs beside phase 10's, the loader's
+    rates alone and pipelined; no kernel launched."""
+    f32 = {k: {"ms_per_step": 1.0, "peak_bytes": None}
+           for k in ("naive_frozen", "naive_unfrozen", "cycle_frozen",
+                     "cycle_unfrozen")}
+    rec, launches = chip_smoke.run_training_bf16(
+        CPU, width=8, channels=32, batch=2, mem=2, iters=2, workers=2,
+        timing_steps=1, f32_steps=f32, n_videos=3, pipe_steps=2,
+        out_dir=str(tmp_path))
+    _check_bf16_training_record(rec, launches)
+    assert rec["resume_max_rel_loss_delta"] == 0.0
+    for r in rec["gpu_vs_cpu"].values():
+        assert r["grads"]["card_vs_cpu_bf16"] == 0.0
+        assert all(c["card_bf16"] == c["cpu_bf16"] > 0.0
+                   for c in r["grad_cosine_to_cpu_f32"].values())
+    assert not os.listdir(tmp_path)  # the data and checkpoints are removed
+
+
+@pytest.mark.parametrize("fault", ["zero", "sign"])
+def test_bf16_training_check_catches_a_wrong_gradient(monkeypatch, fault):
+    """Phase 12's card-against-CPU check fails when the "card"'s bf16
+    gradients (the CPU here) are zeroed or sign-flipped, which its gap
+    limits alone would pass in the unfrozen phase."""
+    from usot_tpu_torch.models.usot import build_usot, init_model
+
+    calls = []
+    grads_and_stats = chip_smoke._grads_and_stats
+
+    def wrong_on_the_card(model):
+        grads, stats = grads_and_stats(model)
+        calls.append(None)
+        if len(calls) % 3 == 1:  # the card's program runs first
+            k = 0.0 if fault == "zero" else -1.0
+            grads = {n: k * g for n, g in grads.items()}
+        return grads, stats
+
+    monkeypatch.setattr(chip_smoke, "_grads_and_stats", wrong_on_the_card)
+    kw = {"mem_size": 2, "width": 8, "channels": 32}
+    model = build_usot(**kw)
+    init_model(model, torch.Generator().manual_seed(0), device=CPU)
+    with pytest.raises(RuntimeError, match="direction"):
+        chip_smoke.bf16_training_vs_cpu(kw, model.state_dict(), CPU,
+                                        loss_samples=2)
 
 
 def test_training_sample_labels_its_box():
@@ -512,6 +592,24 @@ def test_training_runs_on_gpu(tmp_path):
     assert steps["cycle_unfrozen_remat"]["peak_bytes"] \
         < steps["cycle_unfrozen"]["peak_bytes"]
     assert rec["profile_cycle_unfrozen"]["device_ms"] > 0
+
+
+@pytest.mark.gpu
+def test_training_bf16_runs_on_gpu(tmp_path):
+    """Phase 12 on the card at small width: the bf16 schedule from the
+    live loader, its resume within 1e-2, the step against the CPU within
+    `bf16_training_vs_cpu`'s limits; no kernel."""
+    cuda = _cuda()
+    f32 = {k: {"ms_per_step": 1.0, "peak_bytes": None}
+           for k in ("naive_frozen", "naive_unfrozen", "cycle_frozen",
+                     "cycle_unfrozen")}
+    rec, launches = chip_smoke.run_training_bf16(
+        cuda, width=8, channels=32, batch=2, mem=2, iters=2, workers=2,
+        timing_steps=1, f32_steps=f32, n_videos=3, pipe_steps=2,
+        out_dir=str(tmp_path))
+    _check_bf16_training_record(rec, launches)
+    assert rec["profile_cycle_unfrozen"]["device_ms"] > 0
+    assert 0.0 <= rec["pipelined"]["idle_share"] <= 1.0
 
 
 @pytest.mark.gpu

@@ -246,17 +246,82 @@ def test_jax_reads_the_port_checkpoint(setup, runs):
 
 
 def test_port_cli_refuses_what_it_does_not_run(setup, tmp_path):
-    """No shard set (the live loader is not ported), several devices,
-    bfloat16: refused before training starts."""
+    """Several devices: refused before training starts (the live loader
+    and bfloat16, refused until the port had them, are
+    `test_live_loader_follows_jax_and_the_shards` and
+    `test_bf16_live_run_follows_jax`)."""
     root, crop_dir, ann_path, shards = setup
     cfg = _write_cfg(tmp_path, "refused", crop_dir, ann_path)
-    with pytest.raises(FileNotFoundError, match="live loader"):
-        port_main(["--cfg", cfg, "--device", "cpu", "--shards",
-                   str(tmp_path / "none")])
     with pytest.raises(SystemExit, match="one\\s+GPU"):
         port_main(["--cfg", cfg, "--device", "cpu", "--shards", shards,
                    "--devices", "2"])
-    with pytest.raises(SystemExit, match="float32"):
-        port_main(["--cfg", cfg, "--device", "cpu", "--shards", shards,
-                   "--dtype", "bfloat16"])
     assert not (tmp_path / "refused").exists()
+
+
+@pytest.fixture(scope="module")
+def live_runs(setup):
+    """Without `--shards`, from the live loader (`USOTDataset(cfg,
+    seed=epoch)` through `DataLoader`): JAX's trainer in bfloat16, the
+    port's in bfloat16 and in float32, 2 workers."""
+    from usot_tpu.cli.train import main as jax_main
+
+    root, crop_dir, ann_path, _ = setup
+    with pytest.MonkeyPatch.context() as mp:
+        mp.chdir(root)
+
+        def cfg(tag):
+            return _write_cfg(root, tag, crop_dir, ann_path)
+
+        live = ["--workers", "2"]
+        jax_main(["--cfg", cfg("jax_bf16"), "--devices", "1", "--dtype",
+                  "bfloat16"] + live)
+        port_main(["--cfg", cfg("port_bf16"), "--device", "cpu", "--dtype",
+                   "bfloat16"] + live)
+        port_main(["--cfg", cfg("port_live"), "--device", "cpu"] + live)
+    return {tag: _record(root, tag)
+            for tag in ("jax_bf16", "port_bf16", "port_live")}
+
+
+def _losses(rec):
+    return np.concatenate([rec["epochs"][str(e)]["losses"]
+                           for e in range(1, END_EPOCH + 1)])
+
+
+def test_live_loader_follows_jax_and_the_shards(runs, live_runs):
+    """The port's float32 trainer without `--shards` reads the samples
+    JAX's `make_shards` wrote for the same seeds (its images are one grey
+    level from cv2's on ~0.02 % of pixels, `test_torch_port_dataset.py`):
+    the schedule fields equal, the losses within the tolerances of
+    `test_losses_follow_jax` of JAX's run on those shards."""
+    live, jax_rec = live_runs["port_live"], runs["jax"]
+    assert live["dtype"] == "float32"
+    for e in map(str, range(1, END_EPOCH + 1)):
+        for k in ("lr", "cycle_memory", "unfix", "lambda_1", "cls_ratio",
+                  "batch", "n_iters"):
+            assert live["epochs"][e][k] == jax_rec["epochs"][e][k], (e, k)
+        a = np.array(live["epochs"][e]["losses"])
+        b = np.array(jax_rec["epochs"][e]["losses"])
+        tol = 1e-4 if int(e) < UNFIX_EPOCH else 1e-2
+        assert np.all(np.abs(a - b) <= tol * np.abs(b)), (e, a, b)
+
+
+def test_bf16_live_run_follows_jax(runs, live_runs):
+    """`--dtype bfloat16` from the live loader, through the staged
+    schedule, against `usot_tpu.cli.train` with the same arguments: the
+    schedule fields equal JAX's, and the port's losses are no farther
+    from JAX's bf16 losses (relative RMS over all steps) than JAX's own
+    float32 run (on the same samples) is."""
+    port, jax_bf16 = live_runs["port_bf16"], live_runs["jax_bf16"]
+    assert port["dtype"] == "bfloat16"
+    for e in map(str, range(1, END_EPOCH + 1)):
+        for k in ("lr", "cycle_memory", "unfix", "lambda_1", "cls_ratio",
+                  "batch", "n_iters"):
+            assert port["epochs"][e][k] == jax_bf16["epochs"][e][k], (e, k)
+    ours, ref = _losses(port), _losses(jax_bf16)
+    own = _losses(runs["jax"])
+    assert np.all(np.isfinite(ours))
+    mine = np.linalg.norm(ours - ref) / np.linalg.norm(ref)
+    gap = np.linalg.norm(own - ref) / np.linalg.norm(ref)
+    print(f"bf16 losses: port vs JAX bf16 {mine:.3e}, JAX f32 vs bf16 "
+          f"{gap:.3e}")
+    assert mine <= gap, (mine, gap)

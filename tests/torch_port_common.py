@@ -111,12 +111,13 @@ def torch_layout(params, stats):
 
 
 def jax_train_run(variables, cycle, unfix, batches, accum=1, seen=None,
-                  x64=False):
+                  x64=False, bf16=False):
     """JAX steps of one phase over `batches` from `variables`. Per step:
     {"metrics", "params", "momentum"} in the port's state-dict layout
     ("params" with the BN stats; momentum: optax's trace). `seen`, a list,
     receives the cycle-memory `forward_res` of every step (the input of
-    the argmax). x64: the model and its variables in float64."""
+    the argmax). x64: the model and its variables in float64; bf16: the
+    model computes in bfloat16 (`USOTNet.dtype`), its variables float32."""
     import jax
     import jax.numpy as jnp
     import pytest
@@ -130,6 +131,8 @@ def jax_train_run(variables, cycle, unfix, batches, accum=1, seen=None,
         kw["dtype"] = jnp.float64
         variables = jax.tree.map(lambda a: np.asarray(a, np.float64),
                                  variables)
+    if bf16:
+        kw["dtype"] = jnp.bfloat16
     model = jax_usot.build_usot(**kw)
     out = []
     with pytest.MonkeyPatch.context() as mp, jax.enable_x64(x64):
@@ -159,30 +162,33 @@ def jax_train_run(variables, cycle, unfix, batches, accum=1, seen=None,
     return out
 
 
-def port_model(variables, dtype=None):
+def port_model(variables, dtype=None, compute=None):
+    """The fixture's model with `variables`, its parameters in `dtype`
+    (default float32), computing in `compute` (e.g. torch.bfloat16)."""
     import torch
 
     from usot_tpu_torch.models.convert import state_dict_from_flax
     from usot_tpu_torch.models.usot import build_usot
 
     kw, _ = load_fixture()
-    model = build_usot(**kw)
+    model = build_usot(**kw, **({} if compute is None
+                                else {"dtype": compute}))
     model.load_state_dict(state_dict_from_flax(variables))
     return model.to(torch.device("cpu"), dtype or torch.float32)
 
 
 def port_train_run(variables, cycle, unfix, batches, accum=1, remat=False,
-                   seen=None, dtype=None):
+                   seen=None, dtype=None, compute=None):
     """The port's steps of one phase over `batches`, as `jax_train_run`
     records them, plus "grads" (`.grad` after the step); also returns the
-    parameter labels."""
+    parameter labels. dtype / compute: as `port_model`'s."""
     import pytest
     import torch
 
     from usot_tpu_torch.train.optim import build_optimizer
     from usot_tpu_torch.train.step import make_train_step
 
-    model = port_model(variables, dtype)
+    model = port_model(variables, dtype, compute)
     opt, labels = build_optimizer(model, MOMENTUM, WEIGHT_DECAY, LAYERS_LR,
                                   unfix)
     step = make_train_step(model, opt, cycle, unfix, LAMBDA_1, remat=remat,
@@ -213,3 +219,103 @@ def port_train_run(variables, cycle, unfix, batches, accum=1, remat=False,
                              if p in opt.state},
             })
     return out, labels
+
+
+# JAX's steps with XLA's excess precision off: inside `jit`, XLA may keep
+# a bfloat16 fusion's intermediates in float32
+# (`xla_allow_excess_precision`), which no op-by-op implementation
+# reproduces; with it off, each bfloat16 op of JAX's step rounds as it
+# would run op by op (as `test_torch_port_bf16.py` runs JAX). The flag
+# is read when XLA's backend starts, so these runs get a process of
+# their own.
+_JAX_RUNS = """
+import pickle, sys
+sys.path[:0] = {paths!r}
+import conftest  # JAX on the CPU, as in the tests
+from torch_port_common import jax_train_run, load_fixture, train_batch
+_, v = load_fixture()
+out = {{}}
+for key, (cycle, unfix, seeds, b, mem, accum) in {cases!r}.items():
+    batches = [train_batch(s, b, mem) for s in seeds]
+    out[key] = {{bf16: jax_train_run(v, cycle, unfix, batches, accum=accum,
+                                    bf16=bf16) for bf16 in (False, True)}}
+with open({path!r}, "wb") as f:
+    pickle.dump(out, f)
+"""
+
+
+def start_jax_runs(path, cases):
+    """Start a process that writes, to `path` (a pickle), `{key: {False:
+    JAX's float32 run, True: its bfloat16 run}}` for each case `key:
+    (cycle, unfix, batch seeds, batch, memory frames or None, accum)`,
+    with XLA's excess precision off. Returns the process; read the
+    result with `finish_jax_runs`."""
+    import subprocess
+    import sys
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=(
+        os.environ.get("XLA_FLAGS", "")
+        + " --xla_allow_excess_precision=false").strip())
+    script = _JAX_RUNS.format(paths=[here, os.path.dirname(here)],
+                              cases=cases, path=str(path))
+    return subprocess.Popen([sys.executable, "-c", script], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+
+def finish_jax_runs(proc, path, timeout=600):
+    import pickle
+
+    out, _ = proc.communicate(timeout=timeout)
+    assert proc.returncode == 0, out[-4000:]
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def rel_rms(ours, ref):
+    """||ours - ref|| / ||ref|| over the concatenated arrays."""
+    ours = np.concatenate([np.ravel(np.asarray(a, np.float64))
+                           for a in ours])
+    ref = np.concatenate([np.ravel(np.asarray(a, np.float64)) for a in ref])
+    return float(np.linalg.norm(ours - ref) / max(np.linalg.norm(ref),
+                                                  1e-30))
+
+
+def stage_cosines(grads, ref, labels):
+    """Cosine between two `bf16_step_views` "grads" lists over each
+    stage's trainable parameters: a backbone stage
+    (`features.features.layerN`), the neck, the head; 0 where either is
+    zero. A zero, random or sign-flipped gradient has cosine <= ~0 to
+    the reference, whatever the rounding noise of a correct one."""
+    names = sorted(n for n, label in labels.items() if label != "frozen")
+
+    def stage(n):
+        parts = n.split(".")
+        return ".".join(parts[:3]) if parts[0] == "features" else parts[0]
+
+    out = {}
+    for s in sorted({stage(n) for n in names}):
+        idx = [i for i, n in enumerate(names) if stage(n) == s]
+        a, b = (np.concatenate([np.ravel(np.asarray(g[i], np.float64))
+                                for i in idx]) for g in (grads, ref))
+        na, nb = np.linalg.norm(a), np.linalg.norm(b)
+        out[s] = float(a @ b / (na * nb)) if na and nb else 0.0
+    return out
+
+
+def bf16_step_views(runs, labels, init):
+    """What a bf16 step test holds, per run of `jax_train_run` /
+    `port_train_run`: {"losses", "stats", "params", "grads"} as lists of
+    arrays. A JAX run's first-step gradients are its momentum less the
+    weight decay (optax's trace starts at zero)."""
+    names = sorted(n for n, label in labels.items() if label != "frozen")
+    stats = sorted(k for k in runs[0]["params"]
+                   if k.endswith(("running_mean", "running_var")))
+    grads = runs[0]["grads"] if "grads" in runs[0] else {
+        n: runs[0]["momentum"][n] - WEIGHT_DECAY * init[n] for n in names}
+    return {"losses": [[r["metrics"][k] for k in sorted(r["metrics"])]
+                       for r in runs],
+            "stats": [r["params"][k] for r in runs for k in stats],
+            "params": [r["params"][n] for r in runs for n in names],
+            "grads": [grads[n] for n in names]}

@@ -2,7 +2,8 @@
 scripts/train_usot.py).
 
     python -m usot_tpu_torch.cli.train --cfg experiments/train/USOT.yaml \
-        --shards <root> [--device cpu] [--resume checkpoint_eN.pth|.ckpt]
+        [--shards <root>] [--workers N] [--dtype bfloat16] [--device cpu] \
+        [--resume checkpoint_eN.pth|.ckpt]
 
 Epoch loop with the reference schedule: naive Siamese until MEMORY_EPOCH,
 cycle memory after; backbone layers 1-3 unfrozen at UNFIX_EPOCH (a new
@@ -13,9 +14,13 @@ warmup + log LR decay; checkpoints from epoch 5. Runs on the GPU unless
 `checkpoint_eN.ckpt` (its weights, BN stats and optax momentum) and
 continues at epoch N+1.
 
-Batches stream from shard sets in `usot_tpu.cli.make_shards`'s format
-(`<root>/epoch_XXX/`). The live loader (`data/{augment,dataset,loader}.py`)
-is not ported: an epoch without a shard set raises. One device, float32.
+An epoch with a shard set under `--shards` (`<root>/epoch_XXX/`, written
+by either package's `make_shards`) streams it; any other epoch, or every
+epoch without `--shards`, trains from the live loader: `USOTDataset(cfg,
+seed=epoch)` through the threaded `DataLoader` with `cfg.WORKERS`
+threads (`--workers`), as JAX's trainer does. `--dtype bfloat16`
+computes in bf16 over float32 parameters, BN statistics and optimizer
+state. One device.
 """
 from __future__ import annotations
 
@@ -28,6 +33,8 @@ import torch
 
 from usot_tpu_torch.config.defaults import load_config
 from usot_tpu_torch.core.device import resolve_device
+from usot_tpu_torch.data.dataset import USOTDataset
+from usot_tpu_torch.data.loader import DataLoader
 from usot_tpu_torch.data.shards import (ShardLoader, device_prefetch,
                                         epoch_dir, read_meta)
 from usot_tpu_torch.models.convert import load_pretrain
@@ -44,17 +51,21 @@ from usot_tpu_torch.utils.meters import (AverageMeter, create_logger,
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description="Train USOT (PyTorch)")
     parser.add_argument("--cfg", default="experiments/train/USOT.yaml")
+    parser.add_argument("--workers", type=int, default=None,
+                        help="live-loader threads (cfg.WORKERS)")
     parser.add_argument("--devices", type=int, default=None,
                         help="number of GPUs; only 1 is supported")
     parser.add_argument("--device", default=None,
                         help="torch device (default: the GPU; raises "
                         "without one). `cpu` runs on the CPU")
     parser.add_argument("--shards", default=None,
-                        help="shard-set root (usot_tpu.cli.make_shards): "
-                        "every epoch streams <root>/epoch_XXX")
+                        help="shard-set root (cli.make_shards): epochs "
+                        "with a <root>/epoch_XXX set stream it, the others "
+                        "use the live loader")
     parser.add_argument("--dtype", default="float32",
                         choices=["float32", "bfloat16"],
-                        help="compute dtype; the port trains float32 only")
+                        help="compute dtype (parameters, BN statistics "
+                        "and optimizer state stay float32)")
     parser.add_argument("--accum", type=int, default=1,
                         help="gradient-accumulation microbatches per "
                         "step: k-fold effective batch at 1/k activation "
@@ -78,33 +89,40 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     cfg = load_config(args.cfg if os.path.exists(args.cfg) else None)
+    if args.workers:
+        cfg.WORKERS = args.workers
     return train(cfg, args)
 
 
-def _check_args(args, tc, start_epoch):
-    if args.devices not in (None, 1):
-        raise SystemExit(f"--devices {args.devices}: the port trains on one "
-                         "GPU (no data parallel yet)")
-    if args.dtype != "float32":
-        raise SystemExit(f"--dtype {args.dtype}: the port trains float32 "
-                         "only")
-    last = tc.END_EPOCH if args.stop_after_epoch is None \
-        else min(tc.END_EPOCH, args.stop_after_epoch)
-    missing = [e for e in range(start_epoch, last + 1)
-               if args.shards is None
-               or read_meta(epoch_dir(args.shards, e)) is None]
-    if missing:
-        raise FileNotFoundError(
-            f"epochs {missing} have no shard set under --shards "
-            f"{args.shards!r}: the port trains from shard sets written by "
-            "`python -m usot_tpu.cli.make_shards`; its live loader "
-            "(data/{augment,dataset,loader}.py) is not ported")
+def epoch_loader(cfg, args, epoch: int, cycle_memory: bool,
+                 batch_size: int, reader=None):
+    """The epoch's batches: its shard set under `args.shards` where there
+    is one, else the live loader over `USOTDataset(cfg, seed=epoch)`
+    (`reader`, if given, replaces the dataset's frame reader). Returns
+    (loader, a description for the log)."""
+    if args.shards:
+        sdir = epoch_dir(args.shards, epoch)
+        smeta = read_meta(sdir)
+        if smeta is not None:
+            if smeta["cycle_memory"] != cycle_memory:
+                raise ValueError(
+                    f"shard set {sdir} was built for cycle_memory="
+                    f"{smeta['cycle_memory']}, epoch {epoch} needs "
+                    f"{cycle_memory}")
+            return (ShardLoader(sdir, batch_size),
+                    f"{smeta['n_samples']} samples from {sdir}")
+    dataset = USOTDataset(cfg, seed=epoch, reader=reader)
+    dataset.cycle_memory = cycle_memory
+    return (DataLoader(dataset, batch_size, num_workers=cfg.WORKERS),
+            f"{len(dataset)} samples from the live loader, "
+            f"{cfg.WORKERS} workers")
 
 
-def train(cfg, args, device=None):
+def train(cfg, args, device=None, reader=None):
     """Run the schedule of `cfg.USOT.TRAIN` with the options of `args`
     (`parse_args`'s namespace) on `device` (default: `args.device`, else
-    the GPU). Returns the per-epoch record also written to
+    the GPU). `reader` replaces the live loader's frame reader (frames
+    held in memory). Returns the per-epoch record also written to
     `OUTPUT_DIR/train_record.json`."""
     tc = cfg.USOT.TRAIN
     device = resolve_device(device if device is not None else args.device)
@@ -116,7 +134,9 @@ def train(cfg, args, device=None):
     if resume_path:
         ckpt_epoch = peek_epoch(resume_path)
         start_epoch = ckpt_epoch + 1
-    _check_args(args, tc, start_epoch)
+    if args.devices not in (None, 1):
+        raise SystemExit(f"--devices {args.devices}: the port trains on one "
+                         "GPU (no data parallel yet)")
     if device.type == "cuda":
         # parity with the f32 reference: cuDNN defaults to TF32
         torch.backends.cudnn.allow_tf32 = False
@@ -131,7 +151,8 @@ def train(cfg, args, device=None):
         writer = None
 
     model = build_usot(mem_size=tc.MEMORY_NUM, width=tc.WIDTH,
-                       channels=tc.CHANNELS)
+                       channels=tc.CHANNELS,
+                       dtype=getattr(torch, args.dtype))
     init_model(model, torch.Generator().manual_seed(0), device=device)
     pretrain_path = os.path.join("pretrain", tc.PRETRAIN)
     if os.path.exists(pretrain_path):
@@ -140,7 +161,7 @@ def train(cfg, args, device=None):
     else:
         logger.warning("pretrain %s not found; training from scratch",
                        pretrain_path)
-    logger.info("device: %s", device)
+    logger.info("device: %s, compute dtype %s", device, args.dtype)
 
     lr_spaces = build_lr_spaces(tc, tc.END_EPOCH)
 
@@ -162,7 +183,7 @@ def train(cfg, args, device=None):
     # every epoch so a killed run leaves a usable partial record
     record = {"resumed_from": resume_path, "start_epoch": int(start_epoch),
               "end_epoch": int(tc.END_EPOCH), "device": str(device),
-              "epochs": {}}
+              "dtype": args.dtype, "epochs": {}}
     record_path = os.path.join(cfg.OUTPUT_DIR, "train_record.json")
     os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
 
@@ -182,17 +203,11 @@ def train(cfg, args, device=None):
             remat=args.remat, accum_steps=args.accum)
 
         batch_size = tc.BATCH_STAGE_2 if cycle_memory else tc.BATCH
-        sdir = epoch_dir(args.shards, epoch)
-        smeta = read_meta(sdir)
-        if smeta["cycle_memory"] != cycle_memory:
-            raise ValueError(f"shard set {sdir} was built for cycle_memory="
-                             f"{smeta['cycle_memory']}, epoch {epoch} needs "
-                             f"{cycle_memory}")
-        loader = ShardLoader(sdir, batch_size)
+        loader, source = epoch_loader(cfg, args, epoch, cycle_memory,
+                                      batch_size, reader)
         lr = float(lr_spaces[epoch - 1])
-        logger.info("epoch %d lr %.6f cycle_memory=%s batch=%d (%d samples "
-                    "from %s)", epoch, lr, cycle_memory, batch_size,
-                    smeta["n_samples"], sdir)
+        logger.info("epoch %d lr %.6f cycle_memory=%s batch=%d (%s)",
+                    epoch, lr, cycle_memory, batch_size, source)
 
         batch_time = AverageMeter()
         losses = AverageMeter()

@@ -1,12 +1,67 @@
-"""Grids and coordinate transforms shared by the model and the tracker.
+"""Boxes, grids and coordinate transforms shared by the data pipeline,
+the model and the tracker.
 
 The port's own copy of the helpers it needs from
-`usot_tpu/core/geometry.py` (numpy only; ref: lib/models/models.py:102-162,
-lib/tracker/usot_tracker.py:287-350).
+`usot_tpu/core/geometry.py` (numpy only; ref: lib/utils/image_utils.py,
+lib/models/models.py:102-162, lib/tracker/usot_tracker.py:287-350).
 """
 from __future__ import annotations
 
+from collections import namedtuple
+
 import numpy as np
+
+Corner = namedtuple("Corner", "x1 y1 x2 y2")
+Center = namedtuple("Center", "x y w h")
+
+
+def corner2center(corner):
+    """[x1, y1, x2, y2] -> [cx, cy, w, h]."""
+    x1, y1, x2, y2 = corner[0], corner[1], corner[2], corner[3]
+    out = ((x1 + x2) * 0.5, (y1 + y2) * 0.5, x2 - x1, y2 - y1)
+    return Center(*out) if isinstance(corner, Corner) else out
+
+
+def center2corner(center):
+    """[cx, cy, w, h] -> [x1, y1, x2, y2]."""
+    x, y, w, h = center[0], center[1], center[2], center[3]
+    out = (x - w * 0.5, y - h * 0.5, x + w * 0.5, y + h * 0.5)
+    return Corner(*out) if isinstance(center, Center) else out
+
+
+def aug_apply(bbox: Corner, param: dict, shape, inv: bool = False,
+              rd: bool = False):
+    """Shift/scale a crop box, clamped into an image of `shape` (H, W,
+    ...). `param` may hold 'scale': (sx, sy) and 'shift': (tx, ty).
+    Returns (box, the scale and shift actually applied), or with `inv`
+    the box before `param`."""
+    if inv:
+        scale_x, scale_y = param.get("scale", (1.0, 1.0))
+        tx, ty = param.get("shift", (0, 0))
+        c = corner2center(bbox)
+        return center2corner(Center(c.x - tx, c.y - ty, c.w / scale_x,
+                                    c.h / scale_y))
+    imh, imw = shape[:2]
+    original = corner2center(bbox)
+    center = original
+    if "scale" in param:
+        scale_x, scale_y = param["scale"]
+        scale_x = min(scale_x, float(imw) / center.w)
+        scale_y = min(scale_y, float(imh) / center.h)
+        center = Center(center.x, center.y, center.w * scale_x,
+                        center.h * scale_y)
+    bbox = center2corner(center)
+    if "shift" in param:
+        tx, ty = param["shift"]
+        x1, y1, x2, y2 = bbox
+        tx = max(-x1, min(imw - 1 - x2, tx))
+        ty = max(-y1, min(imh - 1 - y2, ty))
+        bbox = Corner(x1 + tx, y1 + ty, x2 + tx, y2 + ty)
+    if rd:
+        bbox = Corner(*map(round, bbox))
+    current = corner2center(bbox)
+    return bbox, {"scale": (current.w / original.w, current.h / original.h),
+                  "shift": (current.x - original.x, current.y - original.y)}
 
 
 def score_grid(score_size: int, stride: int, search_size: int):

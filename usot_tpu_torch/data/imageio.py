@@ -1,10 +1,12 @@
-"""Frame decoding for the port's CLI: the counterpart of the JAX CLI's
-`cv2.imread` followed by its gray-to-BGR step (`usot_tpu/cli/test.py`).
+"""Frame decoding for the port's CLI and training dataset: the
+counterpart of `cv2.imread` followed by the JAX CLI's gray-to-BGR step
+(`usot_tpu/cli/test.py`), and of the dataset's debug `cv2.imwrite`.
 
 The only module of the port that touches an image library. OpenCV is
-used where it imports, else Pillow (its RGB converted to BGR); a machine
-with neither (the GPU machine's installation has neither) can still
-track frames held in memory, which pass through unchanged.
+used where it imports, else Pillow (BGR converted to and from its RGB);
+a machine with neither (the GPU machine's installation has neither) can
+still track and train on frames held in memory, which pass through
+unchanged.
 """
 from __future__ import annotations
 
@@ -48,3 +50,24 @@ def _decode(path: str):
     except OSError:
         return None
     return np.ascontiguousarray(rgb[..., ::-1])
+
+
+def write_image(path: str, image: np.ndarray) -> None:
+    """Write a BGR uint8 (H, W, 3) array to `path`, its format by the
+    extension (`cv2.imwrite`). Raises where neither OpenCV nor Pillow is
+    installed, or the file cannot be written."""
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    if cv2 is not None:
+        if not cv2.imwrite(path, image):
+            raise OSError(f"cannot write {path}")
+        return
+    try:
+        from PIL import Image
+    except ImportError:
+        raise RuntimeError(
+            f"cannot write {path}: neither OpenCV (cv2) nor Pillow (PIL) "
+            "is installed") from None
+    Image.fromarray(np.ascontiguousarray(image[..., ::-1])).save(path)

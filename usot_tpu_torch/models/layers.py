@@ -113,7 +113,10 @@ class BatchNorm(nn.BatchNorm2d):
     the written-out `(x - mean) * rsqrt(var + eps) * scale + bias`
     rounded once: the CPU's by `tests/test_torch_port_bf16.py`, the
     card's by `chip_smoke.bn_rounding_check` (phase 11, and
-    `tests/test_torch_port_smoke.py`'s gpu test). Train mode computes its
+    `tests/test_torch_port_smoke.py`'s gpu test). `batch_norm_elemt` has
+    no derivative, and no training phase needs one: the eval-mode BNs
+    of the trainer's phases (the stem, and the stages while frozen) lie
+    downstream of no trainable parameter. Train mode computes its
     float32 statistics and output the same way."""
 
     def __init__(self, channels: int):

@@ -270,9 +270,12 @@ class USOTNet(nn.Module):
                                                          bn_train=bn)
         mem_cls = head.memory_cls(fwd_x_store, spf_rep, mem_size=1,
                                   bn_train=bn)
+        # in float32 whatever the compute dtype: JAX's step passes
+        # cls_ratio as a float32 array, which promotes the bf16 maps
         s = off_cls.shape[1]  # score size
-        forward_res = (cls_ratio * off_cls.reshape(b, m, s * s)
-                       + (1.0 - cls_ratio) * mem_cls.reshape(b, m, s * s))
+        forward_res = (cls_ratio * off_cls.reshape(b, m, s * s).float()
+                       + (1.0 - cls_ratio)
+                       * mem_cls.reshape(b, m, s * s).float())
         best_idx = torch.argmax(forward_res, dim=2)  # (B, M), first max
 
         img_bbox = pred_offset_to_image_bbox(off_bbox, SEARCH_SIZE, s)

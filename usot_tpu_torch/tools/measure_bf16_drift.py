@@ -2,23 +2,27 @@
 engine in float32 against bfloat16.
 
     python -m usot_tpu_torch.tools.measure_bf16_drift [--out var/bf16_drift]
+        [--data crop511|shards] [--samples 400]
 
 The counterpart of `tools/train_synthetic.py` followed by
-`tools/measure_bf16_drift.py`, with the same schedule on other data.
-Random weights make any drift figure meaningless (their argmax is
-chance-level), so it first trains:
+`tools/measure_bf16_drift.py`. Random weights make any drift figure
+meaningless (their argmax is chance-level), so it first trains:
 
-1. writes a seeded synthetic shard set (`tools.synthetic_shards`) for
-   every epoch. These are not `tools/train_synthetic.py`'s data (solid
-   coloured squares of 60-140 px on one noise image per video, cropped
-   and augmented by the live loader, which the port lacks): a 64-px
-   textured square on fresh noise, shifted by up to 24 px, no OpenCV;
+1. the data: with `--data crop511` (the default),
+   `tools/train_synthetic.py`'s own dataset (24 videos of 12 frames,
+   solid coloured squares of 60-140 px on one noise image per video,
+   crop511 layout), made in memory by `tools.synthetic_crop511` and
+   cropped and augmented by the live loader (`data/dataset.py`) from
+   `cfg.WORKERS` threads. The frames are the generator's arrays, not their
+   JPEG round trip that JAX's loader reads. With `--data shards`, the
+   earlier source: a seeded synthetic shard set (`tools.synthetic_
+   shards`), a 64-px textured square on fresh noise, shifted by up to
+   24 px;
 2. trains a model in float32 through `cli.train.train` on the schedule
    of `tools/train_synthetic.py`: 7 epochs, naive Siamese until epoch 6
    and cycle memory (2 memory frames) from it, layers 1-3 unfrozen from
    epoch 3, batch 8 then 4, from scratch, on `--samples` samples per
-   epoch (400 by default, as JAX's; on these data the weights then
-   barely track the video, and `--samples 1200` gives weights that do);
+   epoch (400 by default, as JAX's);
 3. saves the trained state dict as `<out>/usot_synthetic.pth`;
 4. tracks one synthetic 480x640 video (`tracker.engine.synthetic_video`,
    `bench.py`'s recipe) with `ScanEngine` (K1 on the card) in float32
@@ -49,6 +53,10 @@ def parse_args(argv=None):
     ap.add_argument("--frames", type=int, default=96)
     ap.add_argument("--samples", type=int, default=400,
                     help="samples per epoch")
+    ap.add_argument("--data", default="crop511",
+                    choices=["crop511", "shards"],
+                    help="tools/train_synthetic.py's dataset through the "
+                    "live loader, or the synthetic shard set")
     ap.add_argument("--width", type=int, default=64)
     ap.add_argument("--channels", type=int, default=256)
     ap.add_argument("--device", default=None,
@@ -121,6 +129,8 @@ def main(argv=None):
     from usot_tpu_torch.cli.train import parse_args as train_args
     from usot_tpu_torch.cli.train import train
     from usot_tpu_torch.core.device import resolve_device
+    from usot_tpu_torch.tools.synthetic_crop511 import (gen_dataset,
+                                                        use_dataset)
     from usot_tpu_torch.tools.synthetic_shards import write_training_shards
     from usot_tpu_torch.tools.timing import card_line
     from usot_tpu_torch.tracker.engine import synthetic_video
@@ -133,15 +143,23 @@ def main(argv=None):
     rec = {"card": card, "device": str(device),
            "recipe": {"epochs": EPOCHS, "samples": args.samples,
                       "batch": BATCH, "memory_frames": mem,
-                      "width": args.width, "channels": args.channels}}
+                      "width": args.width, "channels": args.channels,
+                      "data": args.data}}
     os.makedirs(args.out, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=args.out) as shards:
+    with tempfile.TemporaryDirectory(dir=args.out) as tmp:
         t0 = time.perf_counter()
-        rec["shard_bytes"] = write_training_shards(
-            shards, EPOCHS, cfg.USOT.TRAIN.MEMORY_EPOCH, args.samples, mem)
-        rec["shard_write_s"] = time.perf_counter() - t0
+        if args.data == "crop511":
+            crop_dir, ann_path, reader = gen_dataset(tmp)
+            use_dataset(cfg, crop_dir, ann_path, args.samples)
+            targs = train_args([])
+        else:
+            reader = None
+            rec["shard_bytes"] = write_training_shards(
+                tmp, EPOCHS, cfg.USOT.TRAIN.MEMORY_EPOCH, args.samples, mem)
+            targs = train_args(["--shards", tmp])
+        rec["data_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        record = train(cfg, train_args(["--shards", shards]), device)
+        record = train(cfg, targs, device, reader=reader)
         rec["train_s"] = time.perf_counter() - t0
     rec["loss_avg"] = {e: r["loss_avg"] for e, r in record["epochs"].items()}
     # the trained weights: the last epoch's checkpoint

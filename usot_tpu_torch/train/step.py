@@ -86,7 +86,10 @@ def make_train_step(model, optimizer, cycle_memory: bool,
     the phase does not reach it (the memory head in the naive phase), so
     weight decay and momentum move it as optax moves it.
     Images enter the model in its parameters' dtype (float32 unless the
-    caller made the model float64)."""
+    caller made the model float64), as JAX's `_images_f32` feeds them;
+    a bf16 model's stem casts them to its compute dtype, and the losses
+    are float32 (`train/losses.py`). Parameters, BN statistics and the
+    optimizer's state stay float32."""
     stats = _bn_stats(model)
     dtype = next(model.parameters()).dtype
     trainable = [p for g in optimizer.param_groups for p in g["params"]]
