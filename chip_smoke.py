@@ -99,7 +99,29 @@ Phases, each of which raises on failure (exit code != 0):
      `device_prefetch` into the bf16 step, with the card's idle share
      (computed from the profiled step's device time and the pipelined
      wall time). No correlation kernel launched
-     (`launches_by_path["training_bf16"]`).
+     (`launches_by_path["training_bf16"]`);
+ 13. pseudo-label mining (run after phase 12), through `cli.parse_flow`'s
+     functions on a seeded synthetic 720x1280 video of 48 frames held in
+     memory (a textured object moving over a panning textured
+     background): `inference_sequence` with `FlowHelper` at 384x640 on
+     the card (PWCLite in 3-frame mode, `init_pwclite` weights from a
+     fixed generator, the adaptive interval, flow_to_bbox, the DP), the
+     crop511 images (`crop_video_frames`, an in-memory writer) and
+     train.json (`build_train_json(quality_gate=False)`, the CLI's
+     `--keep_all`): one crop per frame, 511x511x3, train.json
+     well-formed. Held against the CPU, the card's loop teacher-forced:
+     every forward's flow within 1e-3 scale-aware, each interval
+     decision equal where the CPU's margin from 8 / 16 px exceeds the
+     flow gap, each kept flow's candidate boxes equal where no mask pixel
+     flips (and every flip within the gap of the threshold), margins
+     recorded. Recorded: ms per forward (device time from a CUDA graph,
+     host clock with the sync, the loop's step with its max|flow| read,
+     the flow's copy to the host), conv GFLOP and TFLOP/s, a
+     `torch.profiler` breakdown (convolutions, cost volume, warp, resize,
+     other) with the launches per forward, forwards per sampled frame,
+     host ms per frame in flow_to_bbox, the DP and the crop, seconds
+     per video and frames mined per second. No correlation kernel
+     launched (`launches_by_path["preprocessing"]`).
 The line before the last is the `kernels` JSON object, the last
 {"ok": true, "device": {...}}. Without CUDA the script exits with an
 error and prints no result. It imports nothing of JAX.
@@ -2052,6 +2074,384 @@ def run_training_bf16(device, width=64, channels=256, batch=12, mem=4,
     return rec, launches
 
 
+# ------------------------------------------------------ pseudo-label mining
+
+def mining_video(n_frames, h=720, w=1280, seed=13):
+    """A seeded BGR uint8 video for the flow network: a textured object
+    (a fifth of the frame a side) moving right and down (~w/140, ~h/180
+    px per frame) over a textured background panning left 2 px per
+    frame. Textures: uniform noise at 1/16 size upsampled bilinearly,
+    plus grain."""
+    g = torch.Generator().manual_seed(seed)
+
+    def texture(hh, ww, lo, span):
+        coarse = torch.rand(1, 3, hh // 16 + 2, ww // 16 + 2, generator=g)
+        smooth = F.interpolate(coarse, size=(hh, ww), mode="bilinear",
+                               align_corners=False)[0].permute(1, 2, 0)
+        return lo + span * smooth + 30 * torch.rand(hh, ww, 3, generator=g)
+
+    pan = 2
+    bg = texture(h, w + pan * n_frames, 20, 150)
+    oh, ow = h // 5, w // 5
+    obj = texture(oh, ow, 60, 170)
+    frames = []
+    for f in range(n_frames):
+        im = bg[:, pan * f:pan * f + w].clone()
+        y, x = int(h / 4 + f * h / 180), int(w / 8 + f * w / 140)
+        im[y:y + oh, x:x + ow] = obj
+        frames.append(np.ascontiguousarray(
+            im.clamp(0, 255).to(torch.uint8).numpy()))
+    return frames
+
+
+def conv_gflop(model, x):
+    """GFLOP of the convolutions of one forward of `model` on `x` (2 x
+    output elements x input channels per group x taps), by stage."""
+    flops: dict = {}
+
+    def hook(name):
+        def count(mod, inputs, out):
+            taps = mod.kernel_size[0] * mod.kernel_size[1]
+            flops[name] = flops.get(name, 0.0) + 2.0 * out.numel() * (
+                mod.in_channels // mod.groups) * taps / 1e9
+        return count
+
+    handles = [m.register_forward_hook(hook(n.split(".")[0]))
+               for n, m in model.named_modules()
+               if isinstance(m, torch.nn.Conv2d)]
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for handle in handles:
+            handle.remove()
+    return {"total": sum(flops.values()), **flops}
+
+
+def _flow_profile(helper, pre, triple, device):
+    """Device ms of one 3-frame forward by category, from `torch.profiler`
+    (each kernel's time goes to the op that launched it): convolutions,
+    the cost volumes, the warps and the flow resizes (ranges around
+    `pwclite`'s functions), the rest; and the device launches (kernels,
+    copies and fills)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from usot_tpu_torch.preprocessing import pwclite
+
+    names = ("correlation", "flow_warp", "resize_flow")
+    plain = {n: getattr(pwclite, n) for n in names}
+
+    def ranged(name):
+        def call(*args, **kwargs):
+            with record_function("pwc::" + name):
+                return plain[name](*args, **kwargs)
+        return call
+
+    for n in names:
+        setattr(pwclite, n, ranged(n))
+    try:
+        helper.forward(pre, *triple)  # warm
+        sync(device)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            helper.forward(pre, *triple)
+            sync(device)
+    finally:
+        for n, fn in plain.items():
+            setattr(pwclite, n, fn)
+    ranges = dict.fromkeys(names, 0.0)
+    conv = total = 0.0
+    launches = 0
+    for ev in prof.key_averages():
+        if ev.is_user_annotation:
+            if ev.device_type == DeviceType.CPU and ev.key.startswith("pwc::"):
+                ranges[ev.key[5:]] += ev.device_time_total / 1e3
+            continue
+        if ev.device_type != DeviceType.CPU:
+            launches += ev.count  # a kernel's own event
+            continue
+        own = ev.self_device_time_total / 1e3
+        total += own
+        if "conv" in ev.key:
+            conv += own
+    return {"device_ms": total, "convolutions": conv,
+            "cost_volume": ranges["correlation"],
+            "warp": ranges["flow_warp"], "resize": ranges["resize_flow"],
+            "other": total - conv - sum(ranges.values()),
+            "device_launches": launches}
+
+
+def _box_check(card_flow, cpu_flow):
+    """`flow_to_bbox`'s discrete decisions on the card's flow against the
+    CPU's: the distance maps' gap, each group's mask disagreement, whether
+    every pixel that flips lies within the gap of the CPU's threshold,
+    the saliency test's margin; the boxes, held equal where nothing
+    flipped."""
+    from usot_tpu_torch.preprocessing import flow2box
+
+    d_card, mean_card, max_card = flow2box.distance_map(card_flow)
+    d_cpu, mean_cpu, max_cpu = flow2box.distance_map(cpu_flow)
+    gap = float(np.abs(d_card - d_cpu).max())
+    same = (np.argmax(d_card) == np.argmax(d_cpu)) and (
+        (mean_card < 0.05 or max_card / mean_card > flow2box.SALIENCY)
+        == (mean_cpu < 0.05 or max_cpu / mean_cpu > flow2box.SALIENCY))
+    flips, explained, margin = [], True, np.inf
+    for ratio, _ in flow2box.GROUPS:
+        thr_card = ratio * mean_card + (1 - ratio) * max_card
+        thr_cpu = ratio * mean_cpu + (1 - ratio) * max_cpu
+        flip = (d_card >= thr_card) != (d_cpu >= thr_cpu)
+        flips.append(int(flip.sum()))
+        near = np.abs(d_cpu - thr_cpu)
+        explained &= bool(np.all(near[flip] <= gap + abs(thr_card - thr_cpu)))
+        margin = min(margin, float(near.min()))
+    boxes_card = flow2box.flow_to_bbox(card_flow)
+    boxes_cpu = flow2box.flow_to_bbox(cpu_flow)
+    held = same and not any(flips)
+    check(explained, f"flow_to_bbox: a pixel flips its mask beyond the "
+          f"flow gap {gap}")
+    check(not held or boxes_card == boxes_cpu,
+          f"flow_to_bbox: equal masks, boxes {boxes_card} vs {boxes_cpu}")
+    dev = None
+    if len(boxes_card) == len(boxes_cpu) and boxes_card:
+        dev = float(np.abs(np.subtract(boxes_card, boxes_cpu)).max())
+    return {"distance_gap": gap, "threshold_margin": margin,
+            "mask_flips": flips, "held_equal": held,
+            "equal": boxes_card == boxes_cpu, "box_max_dev_px": dev,
+            "boxes": boxes_card}
+
+
+def mining_vs_cpu(helper, cpu, frames, decisions, kept_boxes):
+    """The card's adaptive loop teacher-forced on the CPU: each forward
+    the card made, on the same frames (preprocessed on each device), its
+    max|flow| and full-size flow against the CPU's; the CPU's own interval
+    decision equal to the card's wherever its margin from 8 or 16 px
+    exceeds the gap; the kept flows' candidate boxes (`_box_check`) and
+    the card's own run's boxes reproduced."""
+    from usot_tpu_torch.preprocessing import inference
+    from usot_tpu_torch.preprocessing.pwclite import resize_flow
+
+    h, w = frames[0].shape[:2]
+    n = len(frames)
+    pre_card = [helper.preprocess(f[..., ::-1]) for f in frames]
+    pre_cpu = [cpu.preprocess(f[..., ::-1]) for f in frames]
+    pre_err = max(close_scaled(a, b, 1e-3)[1]
+                  for a, b in zip(pre_card[:4], pre_cpu[:4]))
+    check(pre_err <= 1e-3, f"preprocess card vs CPU: {pre_err}")
+    steps, boxes = [], []
+    held = 0
+    direction, last_i = 0, None
+    for i, adjacent, card_max in decisions:
+        if i != last_i:
+            direction, last_i = 0, i
+        triple = (max(0, i - adjacent), i, min(i + adjacent, n - 1))
+        fl_card = resize_flow(helper.forward(pre_card, *triple), h, w)
+        fl_cpu = resize_flow(cpu.forward(pre_cpu, *triple), h, w)
+        ok, err = close_scaled(fl_card, fl_cpu, 1e-3)
+        check(ok, f"flow card vs CPU at {triple}: {err}")
+        cpu_max = float(fl_cpu.abs().amax())
+        flow_gap = float((fl_card.cpu() - fl_cpu).abs().max())
+        gap = max(abs(card_max - cpu_max), flow_gap)
+        margin = min(abs(cpu_max - inference.SHRINK_ABOVE),
+                     abs(cpu_max - inference.GROW_BELOW))
+        card_step = inference.next_interval(card_max, adjacent, direction)
+        cpu_step = inference.next_interval(cpu_max, adjacent, direction)
+        if margin > gap:
+            check(card_step == cpu_step, f"interval decision at {triple}: "
+                  f"card {card_step} ({card_max}) vs CPU {cpu_step} "
+                  f"({cpu_max}), margin {margin} > gap {gap}")
+            held += 1
+        steps.append({"triple": triple, "card_max": card_max,
+                      "cpu_max": cpu_max, "flow_gap": flow_gap,
+                      "margin": margin, "scaled_err": err,
+                      "equal": card_step == cpu_step})
+        if card_step is not None:
+            direction = card_step[1]
+            continue
+        rec = _box_check(fl_card[0].permute(1, 2, 0).cpu().numpy(),
+                         fl_cpu[0].permute(1, 2, 0).numpy())
+        rec["reproduces_run"] = rec.pop("boxes") == kept_boxes[len(boxes)]
+        boxes.append(rec)
+    check(len(boxes) == len(kept_boxes), "kept flows: "
+          f"{len(boxes)} vs {len(kept_boxes)} sampled frames")
+    return {"preprocess_scaled_err": pre_err, "decisions": steps,
+            "decisions_held": held, "boxes": boxes,
+            "min_margin_px": min(s["margin"] for s in steps),
+            "max_flow_gap_px": max(s["flow_gap"] for s in steps),
+            "max_scaled_err": max(s["scaled_err"] for s in steps)}
+
+
+def run_pseudo_labels(device, n_frames=48, h=720, w=1280,
+                      test_shape=(384, 640), instance_size=511, card=""):
+    """Phase 13: pseudo-label mining through `cli.parse_flow`'s functions
+    on a seeded synthetic video held in memory: `inference_sequence`
+    (PWCLite in 3-frame mode at `test_shape`, `init_pwclite` weights from
+    a fixed generator, the adaptive interval, flow_to_bbox, the DP), the
+    crops (`crop_video_frames` at `instance_size`, an in-memory writer)
+    and train.json (`build_train_json(quality_gate=False)`, the CLI's
+    `--keep_all`); held against a CPU run of the same loop
+    (`mining_vs_cpu`), with the forward's times, launches and profile and
+    the host's ms per frame. Returns (record, correlation-kernel
+    launches on this path)."""
+    import tempfile
+
+    from usot_tpu_torch.cli.parse_flow import video_record
+    from usot_tpu_torch.preprocessing import inference
+    from usot_tpu_torch.preprocessing.crop_gen import (build_train_json,
+                                                       crop_video_frames)
+    from usot_tpu_torch.preprocessing.pwclite import resize_flow
+
+    rec = {"card": card, "frames": n_frames, "frame_hw": [h, w],
+           "test_shape": list(test_shape), "instance_size": instance_size}
+    frames = mining_video(n_frames, h, w)
+    helper = inference.FlowHelper(test_shape=test_shape, device=device,
+                                  generator=torch.Generator().manual_seed(13))
+    cpu = inference.FlowHelper(
+        {k: v.cpu() for k, v in helper.model.state_dict().items()},
+        test_shape=test_shape, device="cpu")
+
+    def mine(tmp):
+        """One video through the CLI's functions, each stage on the host
+        clock: (results, seconds by stage)."""
+        timers = {"preprocess": [], "flow_to_bbox": [], "smooth_bbox_dp": []}
+        out = {"kept_boxes": [], "decisions": [], "crops": {}}
+        plain = {"preprocess": helper.preprocess,
+                 "flow_to_bbox": inference.flow_to_bbox,
+                 "smooth_bbox_dp": inference.smooth_bbox_dp}
+
+        def timed(name):
+            def call(*args, **kwargs):
+                t0 = time.perf_counter()
+                res = plain[name](*args, **kwargs)
+                timers[name].append(time.perf_counter() - t0)
+                if name == "flow_to_bbox":
+                    out["kept_boxes"].append(res)
+                return res
+            return call
+
+        helper.preprocess = timed("preprocess")
+        inference.flow_to_bbox = timed("flow_to_bbox")
+        inference.smooth_bbox_dp = timed("smooth_bbox_dp")
+        try:
+            sync(device)
+            t0 = time.perf_counter()
+            out["mined"] = inference.inference_sequence(
+                helper, list(range(n_frames)), gap=3, init_adjacent=4,
+                rng=np.random.RandomState(13), decisions=out["decisions"],
+                reader=frames.__getitem__)
+            t_mine = time.perf_counter() - t0
+        finally:
+            del helper.preprocess  # the class's method again
+            inference.flow_to_bbox = plain["flow_to_bbox"]
+            inference.smooth_bbox_dp = plain["smooth_bbox_dp"]
+        t0 = time.perf_counter()
+        crop_video_frames(list(range(n_frames)), out["mined"][0], 0,
+                          os.path.join(tmp, "crop511", "video"),
+                          instance_size=instance_size,
+                          reader=frames.__getitem__,
+                          writer=out["crops"].__setitem__)
+        t_crop = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        raw = {"video": video_record(out["mined"][0], out["mined"][2],
+                                     frames[0].shape)}
+        out["train_json"] = json.loads(json.dumps(
+            build_train_json(raw, quality_gate=False)))
+        t_json = time.perf_counter() - t0
+        sec = {k: sum(v) for k, v in timers.items()}
+        sec.update({"mine": t_mine, "crop": t_crop, "train_json": t_json,
+                    "total": t_mine + t_crop + t_json})
+        # the loop's forwards, their syncs and the flows' copies
+        sec["flow_loop"] = t_mine - sec["preprocess"] \
+            - sec["flow_to_bbox"] - sec["smooth_bbox_dp"]
+        return out, sec, {k: len(v) for k, v in timers.items()}
+
+    reset_launch_counts()  # the mining path starts here
+    with tempfile.TemporaryDirectory() as tmp:
+        _, cold, _ = mine(tmp)  # first use: cuDNN's heuristics per shape
+        out, sec, counts = mine(tmp)
+    launches = launch_counts()  # read just after the path
+    check(all(v == 0 for v in launches.values()),
+          f"mining launched a correlation kernel: {launches}")
+    boxes, picked, stats = out["mined"]
+    decisions, crops, kept_boxes = (out["decisions"], out["crops"],
+                                    out["kept_boxes"])
+    train_json = out["train_json"]
+
+    sampled = len(range(3, n_frames - 3, 3))
+    check(len(boxes) == n_frames and np.all(np.isfinite(boxes)),
+          f"mined boxes: {len(boxes)} for {n_frames} frames")
+    check(all(1 <= a <= inference.MAX_INTERVAL for _, a, _ in decisions)
+          and len({i for i, _, _ in decisions}) == sampled,
+          f"decisions {decisions}")
+    check(sorted(crops) == [os.path.join(
+        tmp, "crop511", "video", f"{i:06d}.00.x.jpg")
+        for i in range(n_frames)] and len(kept_boxes) == sampled and all(
+        c.shape == (instance_size, instance_size, 3) and c.dtype == np.uint8
+        for c in crops.values()), "crops: one per frame, each "
+        f"{instance_size}x{instance_size}x3 uint8")
+    track = train_json["video"]["00"]
+    check(sorted(track) == sorted([str(i) for i in range(n_frames)]
+                                  + ["meta"]), "train.json frames")
+    check(all(len(track[str(i)]) == 9
+              and track[str(i)][6] <= i <= track[str(i)][7]
+              for i in range(n_frames)), "train.json entries: 9 values, "
+          "T_l <= frame <= T_u")
+    rec.update({
+        "decisions": [[i, a, m] for i, a, m in decisions],
+        "forwards": len(decisions), "sampled_frames": sampled,
+        "forwards_per_sampled_frame": len(decisions) / sampled,
+        "picked_frames": picked, "bbox_picked_freq": stats[2],
+        "corner_bbox_freq": stats[4], "correlation_launches": launches})
+
+    triple = (0, 4, 8)
+    pre = [helper.preprocess(f[..., ::-1]) for f in frames[:9]]
+    rec["conv_gflop_per_forward"] = conv_gflop(
+        helper.model, torch.cat([pre[0], pre[4], pre[8]])[None])
+    if device.type == "cuda":
+        ms = time_device_ms(lambda: helper.forward(pre, *triple))
+
+        def loop_step():  # a forward as the loop makes it, with its sync
+            flow = resize_flow(helper.forward(pre, *triple), h, w)
+            return float(flow.abs().amax())
+
+        full = resize_flow(helper.forward(pre, *triple), h, w)
+        rec["forward"] = {
+            "device_ms": ms, "tflop_per_s":
+                rec["conv_gflop_per_forward"]["total"] / ms,
+            "call_ms": time_call_ms(lambda: helper.forward(pre, *triple)),
+            "loop_step_ms": time_call_ms(loop_step),
+            "flow_to_host_ms": time_call_ms(
+                lambda: full[0].permute(1, 2, 0).cpu().numpy())}
+        rec["profile"] = _flow_profile(helper, pre, triple, device)
+    rec["host_ms_per_frame"] = {
+        "preprocess": 1e3 * sec["preprocess"] / counts["preprocess"],
+        "flow_to_bbox": 1e3 * sec["flow_to_bbox"] / counts["flow_to_bbox"],
+        "smooth_bbox_dp": 1e3 * sec["smooth_bbox_dp"] / n_frames,
+        "crop": 1e3 * sec["crop"] / n_frames}
+    rec["seconds_per_video"] = sec
+    rec["seconds_per_video_cold"] = cold["total"]
+    rec["frames_mined_per_s"] = n_frames / sec["total"]
+    if "forward" in rec:  # computed from the graph's device time, not traced
+        rec["card_idle_share"] = 1.0 - len(decisions) * rec["forward"][
+            "device_ms"] / (1e3 * sec["total"])
+    print(json.dumps({"pseudo_labels": rec}), flush=True)
+
+    t0 = time.perf_counter()
+    rec["gpu_vs_cpu"] = mining_vs_cpu(helper, cpu, frames, decisions,
+                                      kept_boxes)
+    rec["gpu_vs_cpu"]["seconds"] = time.perf_counter() - t0
+    vs = rec["gpu_vs_cpu"]
+    print(json.dumps({"pseudo_labels_gpu_vs_cpu": {
+        k: vs[k] for k in ("preprocess_scaled_err", "decisions_held",
+                           "min_margin_px", "max_flow_gap_px",
+                           "max_scaled_err", "seconds")} | {
+        "boxes": [{k: b[k] for k in ("distance_gap", "threshold_margin",
+                                     "mask_flips", "held_equal", "equal",
+                                     "box_max_dev_px", "reproduces_run")}
+                  for b in vs["boxes"]]}}), flush=True)
+    return rec, launches
+
+
 # ------------------------------------------------------------------- main
 
 def ptxas_report(built):
@@ -2128,6 +2528,7 @@ def main() -> int:
     train_rec, train_launches = run_training(device)
     bf16_train_rec, bf16_train_launches = run_training_bf16(
         device, f32_steps=train_rec["steps"])
+    mining_rec, mining_launches = run_pseudo_labels(device, card=card)
 
     def pick(records, tag, shape):
         return next(r for r in records
@@ -2140,7 +2541,8 @@ def main() -> int:
         k1_records, "K1", "engine, instance 255, B=32, M=7, C=256, f32"),
         sum(k1_paths.values()), {**k1_paths, "tools": tool_counts["K1"],
                                  "training": train_launches["K1"],
-                                 "training_bf16": bf16_train_launches["K1"]})
+                                 "training_bf16": bf16_train_launches["K1"],
+                                 "preprocessing": mining_launches["K1"]})
     k1_bf16 = pick(k1_records, "K1",
                    "engine, instance 255, B=32, M=7, C=256, bf16")
     k1_line["bf16"] = {k: k1_bf16[k] for k in (
@@ -2154,13 +2556,15 @@ def main() -> int:
                     tool_counts["K2"], {
                         "tools": tool_counts["K2"],
                         "training": train_launches["K2"],
-                        "training_bf16": bf16_train_launches["K2"]}),
+                        "training_bf16": bf16_train_launches["K2"],
+                        "preprocessing": mining_launches["K2"]}),
         kernel_line("K3", pick(single_records, "K3",
                                "B=32, 29x29 / 5x5, C=256, bf16"),
                     tool_counts["K3"], {
                         "tools": tool_counts["K3"],
                         "training": train_launches["K3"],
-                        "training_bf16": bf16_train_launches["K3"]}),
+                        "training_bf16": bf16_train_launches["K3"],
+                        "preprocessing": mining_launches["K3"]}),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched")
@@ -2174,6 +2578,7 @@ def main() -> int:
                "training": train_rec, "training_bf16": bf16_train_rec,
                "live_loader": {"alone": bf16_train_rec["live_loader"],
                                "pipelined": bf16_train_rec["pipelined"]},
+               "pseudo_labels": mining_rec,
                "seconds": time.perf_counter() - t_start}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

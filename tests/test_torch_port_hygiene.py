@@ -44,16 +44,19 @@ def test_importing_every_module_loads_no_jax():
                  "data.shards", "cli.train", "utils.msgpack",
                  "tools.synthetic_shards", "tools.measure_bf16_drift",
                  "tools.ab_card_layers", "data.cvops", "data.augment",
-                 "data.dataset", "data.loader", "cli.make_shards"):
+                 "data.dataset", "data.loader", "cli.make_shards",
+                 "preprocessing.correlation", "preprocessing.pwclite",
+                 "preprocessing.flow2box", "preprocessing.inference",
+                 "preprocessing.crop_gen", "cli.parse_flow"):
         assert "usot_tpu_torch." + name in loaded, name
     assert [m for m in loaded if _forbidden(m)] == []
 
 
 def test_training_imports_no_optional_library():
-    """The trainer and its modules, the flax-checkpoint reader and the
-    synthetic-data tools import PyYAML only when a config file is read,
-    and neither OpenCV, Pillow, tensorboardX nor msgpack at module level
-    (the GPU machine has none of them)."""
+    """The trainer and its modules, the flax-checkpoint reader, the
+    synthetic-data tools and the pseudo-label factory import PyYAML only
+    when a config file is read, and neither OpenCV, Pillow, tensorboardX
+    nor msgpack at module level (the GPU machine has none of them)."""
     script = textwrap.dedent("""
         import sys
         import usot_tpu_torch.cli.train
@@ -67,6 +70,8 @@ def test_training_imports_no_optional_library():
         import usot_tpu_torch.data.dataset
         import usot_tpu_torch.data.loader
         import usot_tpu_torch.cli.make_shards
+        import usot_tpu_torch.cli.parse_flow
+        import usot_tpu_torch.preprocessing.flow2box
         print(sorted(n for n in sys.modules if n.split(".")[0] in
                      ("yaml", "cv2", "PIL", "tensorboardX", "msgpack")))
     """)
@@ -139,6 +144,19 @@ def test_entry_points_raise_without_a_gpu(tmp_path):
     engine = BatchScanEngine(model, TrackerConfig(), 64, 64, batch=2,
                              device="cpu")
     assert engine._origin0.device.type == "cpu"
+    # the pseudo-label factory: its flow helper, and the CLI before it
+    # reads a checkpoint or a dataset
+    from usot_tpu_torch.cli import parse_flow
+    from usot_tpu_torch.preprocessing.inference import FlowHelper
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FlowHelper(test_shape=(64, 96))
+    assert FlowHelper(test_shape=(64, 96), device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        parse_flow.main(["--data_dir", str(tmp_path / "none"),
+                         "--output_dir", str(tmp_path / "out"),
+                         "--flow_ckpt", str(tmp_path / "none.tar")])
+    assert not any(tmp_path.iterdir())
 
 
 def test_only_imageio_touches_an_image_library():
@@ -149,7 +167,11 @@ def test_only_imageio_touches_an_image_library():
     the port loads neither."""
     for name in ("cvops", "augment", "dataset", "loader"):
         assert os.path.exists(os.path.join(PORT, "data", name + ".py"))
+    for name in ("inference", "crop_gen"):
+        assert os.path.exists(os.path.join(PORT, "preprocessing",
+                                           name + ".py"))
     assert os.path.exists(os.path.join(PORT, "cli", "make_shards.py"))
+    assert os.path.exists(os.path.join(PORT, "cli", "parse_flow.py"))
     for dirpath, _, files in os.walk(PORT):
         for f in files:
             path = os.path.join(dirpath, f)

@@ -470,6 +470,54 @@ def test_slice_runs_at_small_width():
     assert set(errs) == {"search_features", "cls", "bbox", "cls_mem"}
 
 
+def _check_mining_record(rec, launches, n_frames):
+    assert launches == {"K1": 0, "K2": 0, "K3": 0}
+    assert rec["sampled_frames"] == len(range(3, n_frames - 3, 3))
+    assert rec["forwards"] >= rec["sampled_frames"]
+    assert set(rec["host_ms_per_frame"]) == {
+        "preprocess", "flow_to_bbox", "smooth_bbox_dp", "crop"}
+    sec = rec["seconds_per_video"]
+    assert sec["total"] == pytest.approx(
+        sec["mine"] + sec["crop"] + sec["train_json"])
+    assert sec["flow_loop"] > 0 and rec["frames_mined_per_s"] > 0
+    vs = rec["gpu_vs_cpu"]
+    assert len(vs["decisions"]) == rec["forwards"]
+    assert len(vs["boxes"]) == rec["sampled_frames"]
+    assert vs["max_scaled_err"] <= 1e-3
+    return vs
+
+
+def test_pseudo_labels_run_at_small_size():
+    """Phase 13 at 96x128, test shape 64x96, 14 frames on the CPU: the
+    mining path through the CLI's functions, crops and train.json, the
+    loop held against the CPU (the same device here: every gap 0, every
+    decision and box held equal); no kernel launched."""
+    rec, launches = chip_smoke.run_pseudo_labels(
+        CPU, n_frames=14, h=96, w=128, test_shape=(64, 96))
+    vs = _check_mining_record(rec, launches, 14)
+    assert vs["max_flow_gap_px"] == 0.0
+    assert vs["decisions_held"] == rec["forwards"]
+    assert all(b["held_equal"] and b["reproduces_run"] for b in vs["boxes"])
+    gf = rec["conv_gflop_per_forward"]
+    assert gf["total"] == pytest.approx(sum(
+        v for k, v in gf.items() if k != "total"))
+    assert "forward" not in rec  # device times only on the card
+
+
+def test_mining_checks_catch_a_wrong_flow():
+    """The card-against-CPU check fails a flow off by more than 1e-3."""
+    from usot_tpu_torch.preprocessing import inference
+
+    frames = chip_smoke.mining_video(8, 96, 128)
+    card = inference.FlowHelper(test_shape=(64, 96), device="cpu")
+    cpu = inference.FlowHelper(card.model.state_dict(), test_shape=(64, 96),
+                               device="cpu")
+    with torch.no_grad():
+        cpu.model.context_networks.convs[6][0].bias.add_(0.05)
+    with pytest.raises(RuntimeError, match="flow card vs CPU"):
+        chip_smoke.mining_vs_cpu(card, cpu, frames, [(3, 4, 0.1)], [[]])
+
+
 def _cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -634,3 +682,15 @@ def test_protocols_launch_k1_on_gpu(tmp_path):
     assert one["roi_accepted"] >= 1
     assert roi["roi_accepted"] > roi["roi_replays"] \
         and not roi["roi_fallback"]
+
+
+@pytest.mark.gpu
+def test_pseudo_labels_run_on_gpu():
+    """Phase 13 on the card at 360x640 frames, test shape 192x320, 20
+    frames: the mining path, the loop against the CPU, the forward's
+    times and profile; no kernel."""
+    rec, launches = chip_smoke.run_pseudo_labels(
+        _cuda(), n_frames=20, h=360, w=640, test_shape=(192, 320))
+    _check_mining_record(rec, launches, 20)
+    assert rec["forward"]["device_ms"] > 0
+    assert rec["profile"]["device_launches"] > 0

@@ -319,3 +319,38 @@ def bf16_step_views(runs, labels, init):
             "stats": [r["params"][k] for r in runs for k in stats],
             "params": [r["params"][n] for r in runs for n in names],
             "grads": [grads[n] for n in names]}
+
+
+# ---------------------------------------------------------------- PWCLite
+
+_PWCLITE_VARIABLES = {}
+
+
+def jax_pwclite_variables(n_frames=3, reduce_dense=True, h=64, w=96):
+    """flax variables of `usot_tpu`'s `PWCLite(n_frames, reduce_dense)`
+    without tracing its init (over a minute eagerly at 64x96): the tree
+    from `jax.eval_shape`, kernels drawn lecun-normal-like (std
+    sqrt(1 / fan_in)) and biases N(0, 0.1) from a numpy seed. Cached per
+    configuration; callers copy before changing a leaf."""
+    import jax
+    import jax.numpy as jnp
+
+    from usot_tpu.preprocessing.pwclite import PWCLite
+
+    key = (n_frames, reduce_dense, h, w)
+    if key not in _PWCLITE_VARIABLES:
+        model = PWCLite(n_frames=n_frames, reduce_dense=reduce_dense)
+        shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0),
+                                jnp.zeros((1, h, w, 3 * n_frames)))
+        rng = np.random.default_rng(10 * n_frames + reduce_dense)
+
+        def draw(path, a):
+            if path[-1].key == "kernel":
+                fan_in = int(np.prod(a.shape[:-1]))
+                return (rng.normal(size=a.shape) / np.sqrt(fan_in)).astype(
+                    np.float32)
+            return rng.normal(0.0, 0.1, a.shape).astype(np.float32)
+
+        _PWCLITE_VARIABLES[key] = jax.tree_util.tree_map_with_path(draw,
+                                                                   shapes)
+    return _PWCLITE_VARIABLES[key]

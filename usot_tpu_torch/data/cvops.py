@@ -1,9 +1,11 @@
 """The OpenCV calls of the training data pipeline, without OpenCV.
 
-Counterparts of the cv2 5.0 calls that `usot_tpu/data/augment.py` and
-`usot_tpu/data/dataset.py` make, on uint8 (H, W, 3) BGR arrays (and the
-float32 motion-blur kernel). The pixel work runs in torch's CPU ops
-(C++; gathers in numpy are far slower than cv2). Each op
+Counterparts of the cv2 5.0 calls that `usot_tpu/data/augment.py`,
+`usot_tpu/data/dataset.py` and the pseudo-label factory
+(`usot_tpu/preprocessing/{inference,crop_gen}.py`) make, on uint8
+(H, W, 3) BGR arrays (and the float32 motion-blur kernel; the flow
+network's float32 frames as tensors). The pixel work runs in torch's
+CPU ops (C++; gathers in numpy are far slower than cv2). Each op
 releases the GIL, but a sample is many small ops with Python between
 them, and on the H100's 8-core host the loader's threads did not scale:
 6.7-10.6 cycle-memory samples/s at 1 thread, 8.5-10.8 at 8 (`PERF.md`;
@@ -13,9 +15,13 @@ cv2's answer within one grey level on every pixel
 
 - `warp_affine` / `warp_perspective`: bilinear with float weights,
   rounded to nearest, as cv2 5.0 computes INTER_LINEAR (not the 1/32-px
-  fixed-point scheme of older releases); the affine's border is the
-  constant 0, the perspective's the edge pixel (BORDER_REPLICATE);
+  fixed-point scheme of older releases); the affine's border is a
+  constant (0 unless given), the perspective's the edge pixel
+  (BORDER_REPLICATE);
 - `resize_nearest`: INTER_NEAREST, source index floor(x / scale);
+- `resize_linear`: INTER_LINEAR on float32 (N, C, H, W) tensors (the
+  flow network's frames, on the card), torch's half-pixel bilinear
+  without antialiasing, within 1e-4 of 255 of cv2;
 - `bgr_to_hsv` / `hsv_to_bgr`: COLOR_BGR2HSV / COLOR_HSV2BGR on uint8,
   H in [0, 180): cv2's fixed-point division tables one way, its float
   sector formula the other, truncated to uint8 where cv2's vectorised
@@ -49,12 +55,12 @@ def _hwc(image: np.ndarray):
 
 
 def _remap(image: np.ndarray, map_x: torch.Tensor, map_y: torch.Tensor,
-           border: str) -> np.ndarray:
+           border: str, border_value=0.0) -> np.ndarray:
     """Bilinear sample of `image` at the float64 source coordinates
     (map_x, map_y), each (Ho, Wo). border "constant": neighbours outside
-    the image are 0; "replicate": they take the nearest edge pixel.
-    uint8 images are rounded to uint8, float32 ones are returned as
-    float32."""
+    the image take `border_value` (a number, or one per channel);
+    "replicate": they take the nearest edge pixel. uint8 images are
+    rounded to uint8, float32 ones are returned as float32."""
     h, w = image.shape[:2]
     # only the source rows and columns the map reaches are converted
     x0 = max(0, min(w - 1, math.floor(float(map_x.min()))))
@@ -69,6 +75,12 @@ def _remap(image: np.ndarray, map_x: torch.Tensor, map_y: torch.Tensor,
         raise ValueError(f"image {image.shape}: needs 2 pixels a side")
     chw, back = _hwc(image)
     src = chw[:, y0:y1 + 1, x0:x1 + 1].float()[None]
+    # a constant c outside: sample (image - c) with zeros outside, add c
+    # back (the bilinear weights sum to 1)
+    value = torch.from_numpy(np.broadcast_to(
+        np.asarray(border_value, np.float32), (chw.shape[0],)).copy())
+    value = value[:, None, None]
+    src = src - value
     # grid_sample's align_corners=True grid: -1 and 1 are the centres of
     # the first and last source pixel
     gx = (map_x - x0) * (2.0 / (x1 - x0)) - 1.0
@@ -76,7 +88,7 @@ def _remap(image: np.ndarray, map_x: torch.Tensor, map_y: torch.Tensor,
     grid = torch.stack([gx, gy], dim=-1)[None].float()
     padding = "zeros" if border == "constant" else "border"
     out = F.grid_sample(src, grid, mode="bilinear", padding_mode=padding,
-                        align_corners=True)[0]
+                        align_corners=True)[0] + value
     if image.dtype == np.uint8:
         out = _to_uint8(out)
     return back(out).contiguous().numpy()
@@ -89,17 +101,34 @@ def _pixel_grid(size):
     return xs, ys
 
 
-def warp_affine(image: np.ndarray, matrix, size) -> np.ndarray:
-    """`cv2.warpAffine(image, matrix, size)` with INTER_LINEAR and
-    BORDER_CONSTANT 0: output pixel (x, y) samples the source at
-    inverse(matrix) @ (x, y, 1). `matrix` (2, 3) maps source to output;
-    `size` is (width, height); uint8 (H, W[, C]) or float32 (H, W)."""
+def warp_affine(image: np.ndarray, matrix, size,
+                border_value=0.0) -> np.ndarray:
+    """`cv2.warpAffine(image, matrix, size, borderValue=border_value)`
+    with INTER_LINEAR and BORDER_CONSTANT: output pixel (x, y) samples the
+    source at inverse(matrix) @ (x, y, 1). `matrix` (2, 3) maps source to
+    output; `size` is (width, height); uint8 (H, W[, C]) or float32
+    (H, W). `border_value` is a number or one per channel (float64, e.g.
+    a per-channel mean); cv2 converts it to the image's type first,
+    rounding to nearest even and saturating for uint8."""
     m = np.asarray(matrix, np.float64)
     inv = np.linalg.inv(np.vstack([m, [0.0, 0.0, 1.0]]))[:2]
     xs, ys = _pixel_grid(size)
     map_x = inv[0, 0] * xs + inv[0, 1] * ys + inv[0, 2]
     map_y = inv[1, 0] * xs + inv[1, 1] * ys + inv[1, 2]
-    return _remap(image, map_x, map_y, "constant")
+    value = np.asarray(border_value, np.float64)
+    if image.dtype == np.uint8:
+        value = np.clip(np.rint(value), 0, 255)
+    return _remap(image, map_x, map_y, "constant", value)
+
+
+def resize_linear(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """`cv2.resize(image, (width, height))` (INTER_LINEAR) of float32
+    images, as a float (N, C, H, W) tensor on any device (the flow
+    network resizes its frames on the card): source (x + 0.5) * sw / dw
+    - 0.5, clamped to the image, float weights, no antialiasing when
+    shrinking."""
+    return F.interpolate(x, size=(height, width), mode="bilinear",
+                         align_corners=False, antialias=False)
 
 
 def warp_perspective(image: np.ndarray, matrix, size) -> np.ndarray:

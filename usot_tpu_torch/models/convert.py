@@ -15,6 +15,9 @@ load through
   bn mean / var (stats)   -> BatchNorm running_mean / running_var
   head bias (1, 1, 1, 4)  -> (1, 4, 1, 1)
 
+The flow network's flax variables load through
+`pwclite_state_dict_from_flax` (ARFlow's key layout).
+
 `num_batches_tracked` is not written: the port's BatchNorm keeps the
 buffer registered, and a missing entry loads with strict=True.
 """
@@ -128,6 +131,33 @@ def state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
                           .transpose(0, 3, 1, 2))  # (1,1,1,4) -> (1,4,1,1)
     return sd
 
+
+
+def pwclite_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """flax variables of `usot_tpu`'s `PWCLite` ({'params': ...}, numpy
+    trees) -> state dict of the port's `PWCLite`, in ARFlow's key layout
+    (the inverse of `usot_tpu/preprocessing/inference.py:88-127`): HWIO
+    kernels to OIHW weights, biases as they are. The estimator's last
+    conv is `predict_flow` (reduce) or `conv_last` (dense), whichever the
+    tree has."""
+    params = variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(key, path):
+        sd[key + ".weight"] = _oihw(_get(params, path + ["conv", "kernel"]))
+        sd[key + ".bias"] = _t(_get(params, path + ["conv", "bias"]))
+
+    for lvl in range(6):
+        for j, half in enumerate("ab"):
+            put(f"feature_pyramid_extractor.convs.{lvl}.{j}.0",
+                ["feature_pyramid_extractor", f"level{lvl}_{half}"])
+    for name in params["flow_estimators"]:
+        put(f"flow_estimators.{name}.0", ["flow_estimators", name])
+    for i in range(7):
+        put(f"context_networks.convs.{i}.0", ["context_networks", f"c{i}"])
+    for i in range(5):
+        put(f"conv_1x1.{i}.0", [f"conv1x1_{i}"])
+    return sd
 
 def _backbone_convbns():
     """(conv key, bn key) of every conv+BN pair of the backbone, in the

@@ -303,7 +303,7 @@ def build_usot(mem_size: int = 4, dtype: torch.dtype = torch.float32,
     return USOTNet(mem_size=mem_size, dtype=dtype, **kwargs)
 
 
-def _lecun_normal_(w, generator):
+def lecun_normal_(w, generator):
     """flax's lecun_normal: truncated normal on [-2, 2] standard
     deviations, std sqrt(1 / fan_in) / 0.8796... (fan_in = I*kh*kw)."""
     fan_in = w.shape[1] * w.shape[2] * w.shape[3]
@@ -330,7 +330,7 @@ def init_model(model: USOTNet, generator: torch.Generator | None = None,
     model.to(dev)
     for module in model.modules():
         if isinstance(module, nn.Conv2d):
-            _lecun_normal_(module.weight, generator)
+            lecun_normal_(module.weight, generator)
             if module.bias is not None:
                 module.bias.zero_()
         elif isinstance(module, BatchNorm):
