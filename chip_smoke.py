@@ -122,6 +122,31 @@ Phases, each of which raises on failure (exit code != 0):
      host ms per frame in flow_to_bbox, the DP and the crop, seconds
      per video and frames mined per second. No correlation kernel
      launched (`launches_by_path["preprocessing"]`).
+ 14. the user's last steps (run after phase 13): (a) the VOT2020/TraX
+     entry point, `cli.vot_wrapper.run` at full width on seeded random
+     weights with calibrated BN (`cli.test.load_model`'s route, a saved
+     `.pth`), run in a thread over a pair of pipes with this script as
+     the toolkit and frames held in memory: a `rectangle` session on a
+     480x640 video and a `mask` (VOT2020) session on a 720x1280 video
+     started from a mask, 60 frames each; a confidence with every state,
+     every mask nonempty, the regions those of `USOTTracker` +
+     `ModelRunner` tracking the same frames directly (rectangles within
+     1e-3 px, masks equal), K1 exactly 3 times per tracked frame
+     (`launches_by_path["trax"]`); ms per frame through the protocol
+     beside the tracker alone, the mask's RLE encode and decode at 720p;
+     (b) `cli.evaluate` on the card's host scoring phase 9's VOT-restart
+     and refill result files (dataset JSONs and first frames as PNGs
+     written beside them): every video scored, each video's failures
+     phase 9's restarts, AUC, EAO and accuracy finite, its seconds;
+     (c) the one-key chain in this process (`cli.onekey.main` with a
+     config dict and `onekey.in_process`): one mined 720x1280 video of
+     24 frames, two epochs of 2 steps at full width and B=12 (naive,
+     then cycle memory), `test_epochs` over both checkpoints on a
+     2-video 480x640 benchmark (30 frames, the parity engine),
+     `evaluate`; every stage's artifacts, a finite AUC, `STAGE_TIMES`,
+     K1 3 times per tested frame (`launches_by_path["onekey"]`);
+     (d) `usot_tpu_torch.entry.entry()` once: its output shapes and K1's
+     three launches (`launches_by_path["entry"]`).
 The line before the last is the `kernels` JSON object, the last
 {"ok": true, "device": {...}}. Without CUDA the script exits with an
 error and prints no result. It imports nothing of JAX.
@@ -1183,6 +1208,27 @@ def _ring_copy(engine, state, device):
     return lane_bytes, statistics.median(times)
 
 
+def protocol_datasets(h=480, w=640, box=60, vot_lanes=8, vot_lengths=(40, 64),
+                      chunk=16, refill_lengths=(8, 80), refill_videos=10):
+    """Phase 9's in-memory videos (its defaults are `run_protocols`'s):
+    (VOT videos whose ground truth forces the restarts, the refill
+    protocol's OTB-layout videos)."""
+    lo, hi = vot_lengths
+    lengths = [lo + (hi - lo) * v // max(vot_lanes - 1, 1)
+               for v in range(vot_lanes)]
+    vot = _vot_dataset(lengths, h, w, box, chunk)
+    lo, hi = refill_lengths
+    refill = {}
+    for v in range(refill_videos):
+        n = lo + (hi - lo) * v // max(refill_videos - 1, 1)
+        frames, centres = _protocol_video(n, h, w, box, seed=50 + v)
+        refill[f"r{v}"] = dict(
+            name=f"r{v}", image_files=frames,
+            gt=np.asarray([[centres[0][0] - box / 2,
+                            centres[0][1] - box / 2, box, box]] * n))
+    return vot, refill
+
+
 def run_protocols(model, device, h=480, w=640, box=60, vot_lanes=8,
                   vot_lengths=(40, 64), chunk=16, refill_lanes=4,
                   refill_lengths=(8, 80), refill_videos=10, roi_lanes=8,
@@ -1223,10 +1269,8 @@ def run_protocols(model, device, h=480, w=640, box=60, vot_lanes=8,
     rec = {"card": card}
 
     # -- VOT restart, lockstep against the scan engine
-    lo, hi = vot_lengths
-    lengths = [lo + (hi - lo) * v // max(vot_lanes - 1, 1)
-               for v in range(vot_lanes)]
-    vot = _vot_dataset(lengths, h, w, box, chunk)
+    vot, refill = protocol_datasets(h, w, box, vot_lanes, vot_lengths, chunk,
+                                    refill_lengths, refill_videos)
     common = ["--dataset", "VOT2018", "--chunk", str(chunk), "--batch",
               str(vot_lanes)]
     args = cli.parse_args(common + ["--result_dir",
@@ -1254,15 +1298,6 @@ def run_protocols(model, device, h=480, w=640, box=60, vot_lanes=8,
     rec["vot"] = {**group, "skeletons": skeletons, "k1_launches": k1["vot"]}
 
     # -- lane refill, and one splice held bitwise
-    lo, hi = refill_lengths
-    refill = {}
-    for v in range(refill_videos):
-        n = lo + (hi - lo) * v // max(refill_videos - 1, 1)
-        frames, centres = _protocol_video(n, h, w, box, seed=50 + v)
-        refill[f"r{v}"] = dict(
-            name=f"r{v}", image_files=frames,
-            gt=np.asarray([[centres[0][0] - box / 2,
-                            centres[0][1] - box / 2, box, box]] * n))
     args = cli.parse_args(["--dataset", "OTB2015", "--engine", "batch",
                            "--refill", "1", "--chunk", str(chunk),
                            "--batch", str(refill_lanes), "--result_dir",
@@ -2452,6 +2487,441 @@ def run_pseudo_labels(device, n_frames=48, h=720, w=1280,
     return rec, launches
 
 
+# ------------------------------------ TraX, the evaluation, the one-key chain
+
+def png_bytes(image):
+    """A BGR uint8 (H, W, 3) frame as an RGB PNG file's bytes (zlib, no
+    image library): what `eval.datasets._image_size` reads a size from."""
+    import struct
+    import zlib
+
+    h, w = image.shape[:2]
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           np.ascontiguousarray(image[..., ::-1]).reshape(
+                               h, w * 3)], axis=1)
+
+    def chunk(tag, data):
+        return struct.pack(">I", len(data)) + tag + data + struct.pack(
+            ">I", zlib.crc32(tag + data) & 0xFFFFFFFF)
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1))
+            + chunk(b"IEND", b""))
+
+
+class FrameStore:
+    """Frames held in memory by path, for a machine with no image codec:
+    `write(path, image)` keeps the array and, for a `.png` path, writes
+    the PNG file too (its header and its listing are all the port reads
+    from disk); `read(path)` gives the array back (None if absent, as
+    `read_image` answers an unreadable file)."""
+
+    def __init__(self):
+        self.frames = {}
+
+    def write(self, path, image):
+        self.frames[os.path.normpath(path)] = image
+        if path.endswith(".png"):
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            with open(path, "wb") as f:
+                f.write(png_bytes(image))
+
+    def read(self, path):
+        return self.frames.get(os.path.normpath(str(path)))
+
+
+def _trax_toolkit(fmt, ckpt, paths, init_region, device, reader, width,
+                  channels, mem_size):
+    """One TraX session: `cli.vot_wrapper.run` in a thread over a pair of
+    pipes, this function the toolkit, one message at a time. Returns
+    (the `state` messages after the init's echo, ms from writing each
+    `frame` to reading its `state`, the init's echo ms, ms to the
+    hello)."""
+    import threading
+
+    from usot_tpu_torch.cli import vot_wrapper
+    from usot_tpu_torch.eval import trax_protocol as tp
+
+    to_tracker, from_tracker = os.pipe(), os.pipe()
+    fin = os.fdopen(to_tracker[0], "r")
+    fout = os.fdopen(from_tracker[1], "w")
+    send_f = os.fdopen(to_tracker[1], "w")
+    recv_f = os.fdopen(from_tracker[0], "r")
+    failed = []
+    threads = torch.get_num_threads()
+
+    def serve():
+        # a thread's own CPU op pool (OpenMP): the direct tracker's size,
+        # so a CPU run sums in the same order
+        torch.set_num_threads(threads)
+        try:
+            vot_wrapper.run(ckpt, fmt, mem_size=mem_size, width=width,
+                            channels=channels, device=device, reader=reader,
+                            fin=fin, fout=fout)
+        except BaseException as e:  # noqa: BLE001 - reported below
+            failed.append(e)
+        finally:
+            fout.close()  # the toolkit reads EOF if the tracker died
+
+    def expect(mtype):
+        while True:
+            line = recv_f.readline()
+            check(line, f"TraX {fmt}: the tracker closed its pipe awaiting "
+                  f"{mtype}: {failed}")
+            msg = tp.parse_message(line)
+            if msg is not None:
+                check(msg[0] == mtype, f"TraX {fmt}: {msg[0]} for {mtype}")
+                return msg
+
+    def send(mtype, args=()):
+        send_f.write(tp.format_message(mtype, args) + "\n")
+        send_f.flush()
+
+    thread = threading.Thread(target=serve, daemon=True)
+    t0 = time.perf_counter()
+    thread.start()
+    try:
+        _, _, hello = expect("hello")
+        hello_ms = (time.perf_counter() - t0) * 1e3
+        check(hello["trax.region"] == fmt and hello["trax.image"] == "path",
+              f"TraX hello {hello}")
+        t0 = time.perf_counter()
+        send("initialize", (paths[0], tp.encode_region(init_region)))
+        expect("state")
+        init_ms = (time.perf_counter() - t0) * 1e3
+        states, frame_ms = [], []
+        for p in paths[1:]:
+            t0 = time.perf_counter()
+            send("frame", (p,))
+            states.append(expect("state"))
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+        send("quit")
+        expect("quit")
+    finally:
+        send_f.close()
+        thread.join(timeout=120)
+        recv_f.close()
+        fin.close()
+    check(not thread.is_alive() and not failed,
+          f"TraX {fmt}: the wrapper failed: {failed}")
+    return states, frame_ms, init_ms, hello_ms
+
+
+def run_trax(device, width=64, channels=256, mem_size=4, n_frames=60,
+             rect_hw=(480, 640), mask_hw=(720, 1280), box=48, card=""):
+    """Phase 14a: the VOT2020/TraX entry point at full width,
+    `cli.vot_wrapper.run` on seeded random weights with calibrated BN
+    (`cli.test.load_model`'s route, saved as a `.pth` the wrapper
+    loads), played by this script as the toolkit over pipes, the frames
+    held in memory (`reader`): a `rectangle` session on a 480x640 video
+    and a `mask` (VOT2020) session on a 720x1280 video started from a
+    mask. Every frame's `state` carries a confidence, every mask is
+    nonempty; the reported regions against the same frames tracked
+    directly by `USOTTracker` + `ModelRunner` on the same weights in
+    this process (rectangles within 1e-3 px, masks equal, confidences
+    within 1e-5); K1 exactly 3 times per tracked frame. Records ms per
+    frame through the protocol beside the tracker alone, the mask's RLE
+    encode and decode ms at 720p, the init's. Returns (record, K1
+    launches of the two sessions)."""
+    import argparse
+    import tempfile
+
+    from usot_tpu_torch.cli.test import load_model
+    from usot_tpu_torch.cli.vot_wrapper import mask_from_rect, rect_from_mask
+    from usot_tpu_torch.core.geometry import cxy_wh_2_rect
+    from usot_tpu_torch.eval import trax_protocol as tp
+    from usot_tpu_torch.tracker.runner import ModelRunner
+    from usot_tpu_torch.tracker.tracker import USOTTracker
+
+    rec = {"card": card, "width": width, "channels": channels,
+           "frames": n_frames}
+    t0 = time.perf_counter()
+    model = load_model(argparse.Namespace(
+        resume="", mem_size=mem_size, width=width, channels=channels,
+        dtype="float32"), device)
+    rec["model_s"] = time.perf_counter() - t0
+    runner = ModelRunner(model, device=device)
+    total = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "usot_random.pth")
+        torch.save(model.state_dict(), ckpt)
+        for fmt, (h, w) in (("rectangle", rect_hw), ("mask", mask_hw)):
+            frames, centers = synthetic_video(n_frames, box, h, w,
+                                              seed=len(fmt))
+            paths = [f"{fmt}/{i:04d}.png" for i in range(n_frames)]
+            by_path = dict(zip(paths, frames))
+            cx, cy = centers[0]
+            x0, y0 = cx - box // 2, cy - box // 2
+            if fmt == "mask":
+                init = np.zeros((h, w), np.uint8)
+                init[y0:y0 + box, x0:x0 + box] = 1
+                region = tp.Mask.create(init)
+                pos_sz = rect_from_mask(init)
+            else:
+                region = tp.Rectangle.create(x0, y0, box, box)
+                pos_sz = [x0 + box / 2, y0 + box / 2, box, box]
+
+            reset_launch_counts()  # the TraX session's path starts here
+            states, frame_ms, init_ms, hello_ms = _trax_toolkit(
+                fmt, ckpt, paths, region, device, by_path.get, width,
+                channels, mem_size)
+            k1 = launch_counts()["K1"]  # read just after the path
+            total += k1
+            tracked = n_frames - 1
+            check(len(states) == tracked, f"TraX {fmt}: {len(states)} states")
+            if device.type == "cuda":
+                check(k1 == 3 * tracked, f"TraX {fmt}: {k1} K1 launches for "
+                      f"{tracked} frames, expected {3 * tracked}")
+
+            # the same frames tracked directly, the same weights
+            tracker = USOTTracker()
+            st = tracker.init(frames[0], np.array(pos_sz[:2], np.float64),
+                              np.array(pos_sz[2:], np.float64), runner)
+            direct, direct_ms = [], []
+            for im in frames[1:]:
+                t1 = time.perf_counter()
+                st = tracker.track(st, im)
+                direct_ms.append((time.perf_counter() - t1) * 1e3)
+                direct.append((cxy_wh_2_rect(st["target_pos"],
+                                             st["target_sz"]),
+                               st["cls_score"]))
+            px_err, conf_err, encode_ms, decode_ms = 0.0, 0.0, [], []
+            for (_, args, props), (rect, conf) in zip(states, direct):
+                check("confidence" in props, f"TraX {fmt}: no confidence")
+                conf_err = max(conf_err, abs(float(props["confidence"])
+                                             - conf))
+                if fmt == "mask":
+                    t1 = time.perf_counter()
+                    full = tp.decode_region(args[0]).array(True, (w, h))
+                    decode_ms.append((time.perf_counter() - t1) * 1e3)
+                    t1 = time.perf_counter()
+                    tp.Mask.create(full).encode()
+                    encode_ms.append((time.perf_counter() - t1) * 1e3)
+                    check(full.sum() > 0, "TraX mask: an empty mask")
+                    check(np.array_equal(full, mask_from_rect(rect, (w, h))),
+                          "TraX mask: the reported mask is not the direct "
+                          "tracker's rectangle filled")
+                else:
+                    got = np.array(tp.decode_region(args[0]).bounds())
+                    px_err = max(px_err, float(np.abs(got - rect).max()))
+            check(px_err <= 1e-3 and conf_err <= 1e-5,
+                  f"TraX {fmt}: {px_err} px, confidence {conf_err} from the "
+                  "direct tracker")
+            srec = {"frame_hw": [h, w], "k1_launches": k1,
+                    "ms_per_frame_median": statistics.median(frame_ms),
+                    "ms_per_frame_min": min(frame_ms),
+                    "tracker_alone_ms_median": statistics.median(direct_ms),
+                    "tracker_alone_ms_min": min(direct_ms),
+                    "init_echo_ms": init_ms,
+                    "first_frame_ms": frame_ms[0],
+                    "startup_s": hello_ms / 1e3,
+                    "max_abs_px_vs_direct": px_err,
+                    "max_abs_confidence_vs_direct": conf_err}
+            if fmt == "mask":
+                srec["rle_encode_ms_median"] = statistics.median(encode_ms)
+                srec["rle_decode_ms_median"] = statistics.median(decode_ms)
+            rec[fmt] = srec
+            print(json.dumps({f"trax_{fmt}": srec}), flush=True)
+    return rec, total
+
+
+def _vot_tags(n):
+    return {t: [0] * n for t in ("camera_motion", "illum_change",
+                                 "motion_change", "size_change",
+                                 "occlusion")}
+
+
+def score_protocols(protocols_root, proto_rec, vot, refill, card=""):
+    """Phase 14b: `cli.evaluate` on the card's host scores phase 9's
+    result files (the VOT restart protocol's, the lane refill's OTB
+    layout), with the dataset JSONs and each video's first frame as a
+    PNG (zlib, `png_bytes`) in a temporary dataset root (the JSONs also
+    written beside the results). The VOT results are scored
+    under VOT2019's EAO window (46-291 frames, which the 40-64-frame
+    videos reach; VOT2018's starts at frame 100, past all of them, where
+    the toolkit's EAO is NaN by definition); the restart protocol is the
+    same. Held: every video scored, each video's failures equal to phase
+    9's restart count (the `2` rows of its skeleton), AUC, EAO and
+    accuracy finite. Records seconds."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as root:
+        return _score_protocols(root, protocols_root, proto_rec, vot, refill,
+                                card)
+
+
+def _score_protocols(root, protocols_root, proto_rec, vot, refill, card):
+    from usot_tpu_torch.cli.evaluate import evaluate
+
+    rec = {"card": card}
+    t0 = time.perf_counter()
+    for name, videos, tags in (("VOT2019", vot, True),
+                               ("OTB2015", refill, False)):
+        meta = {}
+        for v, video in videos.items():
+            frames = video["image_files"]
+            names = [f"{v}/{i:08d}.png" for i in range(len(frames))]
+            path = os.path.join(root, name, names[0])
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            with open(path, "wb") as f:
+                f.write(png_bytes(frames[0]))
+            gt = np.asarray(video["gt"], np.float64)
+            if not tags:  # the OTB layout's ground truth is 1-indexed
+                gt = gt + [1, 1, 0, 0]
+            meta[v] = {"video_dir": v, "init_rect": gt[0].tolist(),
+                       "img_names": names, "gt_rect": gt.tolist(),
+                       **(_vot_tags(len(frames)) if tags else {"attr": []})}
+        for where in (root, protocols_root):
+            with open(os.path.join(where, name + ".json"), "w") as f:
+                json.dump(meta, f)
+    rec["write_s"] = time.perf_counter() - t0
+
+    for v, video in vot.items():  # phase 9's videos, made again
+        with open(os.path.join(protocols_root, "batch", "VOT2018", "USOT",
+                               "baseline", v, v + "_001.txt")) as f:
+            n_rows = len(f.read().split())
+        check(n_rows == len(video["image_files"]),
+              f"VOT {v}: {n_rows} result rows, "
+              f"{len(video['image_files'])} frames")
+    t0 = time.perf_counter()
+    out = evaluate("VOT2019", root, os.path.join(
+        protocols_root, "batch", "VOT2018"), ["USOT"])
+    rec["vot_s"] = time.perf_counter() - t0
+    fails = out["ar"]["USOT"]["failures"]
+    check(sorted(fails) == sorted(vot), f"VOT scored {sorted(fails)}")
+    restarts = {v: s.count("2")
+                for v, s in proto_rec["vot"]["skeletons"].items()}
+    check({v: f[0] for v, f in fails.items()} == restarts,
+          f"VOT failures {fails} != phase 9's restarts {restarts}")
+    overlaps = [x for o in out["ar"]["USOT"]["overlaps"].values() for x in o]
+    accuracy = float(np.nanmean(overlaps))
+    eao = float(out["eao"]["USOT"]["all"])
+    check(np.isfinite(accuracy) and np.isfinite(eao),
+          f"VOT accuracy {accuracy}, EAO {eao}")
+
+    t0 = time.perf_counter()
+    ope = evaluate("OTB2015", root, os.path.join(
+        protocols_root, "refill", "OTB2015"), ["USOT"])
+    rec["otb_s"] = time.perf_counter() - t0
+    success = ope["success"]["USOT"]
+    check(sorted(success) == sorted(refill), f"OTB scored {sorted(success)}")
+    auc = float(np.mean([np.mean(s) for s in success.values()]))
+    check(np.isfinite(auc), f"OTB AUC {auc}")
+    rec.update({"vot_videos": len(fails), "failures": restarts,
+                "accuracy": accuracy, "eao_vot2019_window": eao,
+                "otb_videos": len(success), "auc": auc,
+                "seconds": rec["vot_s"] + rec["otb_s"]})
+    print(json.dumps({"evaluate": rec}), flush=True)
+    return rec
+
+
+def run_onekey(device, n_frames=24, raw_hw=(720, 1280), bench_hw=(480, 640),
+               bench_videos=2, bench_frames=30, batch=12, mem=4, iters=2,
+               width=None, channels=None, card=""):
+    """Phase 14c: the one-key chain in this process, `cli.onekey.main`
+    with the config as a dict and `onekey.in_process` as its
+    `run_stage`, frames held in memory (`FrameStore`): one mined video
+    (phase 13's 720x1280 video, `n_frames` frames; PWCLite with fixed
+    random weights, `--keep_all`), two epochs of `iters` steps at B=12
+    (naive, then cycle memory unfrozen, 4 memory frames), `test_epochs`
+    over both checkpoints on a 2-video 480x640 OTB-layout benchmark of
+    30 frames (the parity engine), and `evaluate`. Held: every stage's
+    artifacts, a result directory per epoch with every video's rows, the
+    evaluation ran and its AUC is finite; K1 3 times per tested frame.
+    Records `STAGE_TIMES`. Returns (record, K1 launches on the chain)."""
+    import tempfile
+
+    from usot_tpu_torch.cli import onekey
+    from usot_tpu_torch.tools import onekey_synthetic as synth
+
+    rec = {"card": card}
+    with tempfile.TemporaryDirectory() as work:
+        store = FrameStore()
+        t0 = time.perf_counter()
+        for i, im in enumerate(mining_video(n_frames, *raw_hw)):
+            store.write(os.path.join(work, "raw", "video00", f"{i:04d}.png"),
+                        im)
+        synth.build_benchmark(os.path.join(work, "bench"), bench_videos,
+                              bench_frames, *bench_hw, writer=store.write,
+                              ext=".png")
+        rec["data_s"] = time.perf_counter() - t0
+        cfg = synth.build_config(work, samples=iters * batch, mem_num=mem,
+                                 width=width, channels=channels, batch=batch)
+        cfg["USOT"]["WORKERS"] = min(8, os.cpu_count() or 1)
+        reset_launch_counts()  # the one-key chain's path starts here
+        t0 = time.perf_counter()
+        onekey.main(["--device", str(device)], cfg=cfg,
+                    run_stage=onekey.in_process(cfg, reader=store.read,
+                                                writer=store.write))
+        rec["seconds"] = time.perf_counter() - t0
+        k1 = launch_counts()["K1"]  # read just after the path
+        rec["stage_times"] = dict(onekey.STAGE_TIMES)
+        check(list(rec["stage_times"]) == ["preprocess", "train",
+                                           "test_epochs", "evaluate"],
+              f"onekey stages {rec['stage_times']}")
+        prep = os.path.join(work, "prep")
+        with open(os.path.join(prep, "train.json")) as f:
+            train_json = json.load(f)
+        crops = [p for p in store.frames if ".x.jpg" in p]
+        check(list(train_json) == ["video00"] and len(crops) == n_frames
+              and os.path.exists(os.path.join(prep, "raw.json")),
+              f"preprocess: {list(train_json)}, {len(crops)} crops")
+        with open(os.path.join(work, "log", "train_record.json")) as f:
+            record = json.load(f)
+        check(sorted(record["epochs"]) == ["5", "6"] and all(
+            e["n_iters"] == iters and np.all(np.isfinite(e["losses"]))
+            for e in record["epochs"].values())
+            and record["epochs"]["6"]["cycle_memory"],
+            f"train: {record['epochs']}")
+        check(sorted(os.listdir(os.path.join(work, "snapshot"))) == [
+            "checkpoint_e5.pth", "checkpoint_e6.pth"], "checkpoints")
+        result = os.path.join(work, "result", "OTB2015")
+        trackers = sorted(os.listdir(result))
+        check(trackers == ["USOTcheckpoint_e5", "USOTcheckpoint_e6"],
+              f"result directories {trackers}")
+        for t in trackers:
+            for v in range(bench_videos):
+                with open(os.path.join(result, t, f"Synth{v}.txt")) as f:
+                    rows = f.read().split()
+                check(len(rows) == bench_frames, f"{t}/Synth{v}: {len(rows)}")
+        summary = synth.summarize(work)
+        check(all(np.isfinite(a) for a in summary["auc"].values()),
+              f"onekey AUC {summary['auc']}")
+        tested = len(trackers) * bench_videos * (bench_frames - 1)
+        if device.type == "cuda":
+            check(k1 == 3 * tested, f"onekey: {k1} K1 launches for {tested} "
+                  f"tested frames, expected {3 * tested}")
+        rec.update({"auc": summary["auc"], "k1_launches": k1,
+                    "losses": {e: r["losses"]
+                               for e, r in record["epochs"].items()},
+                    "tested_frames": tested})
+    print(json.dumps({"onekey": rec}), flush=True)
+    return rec, k1
+
+
+def run_entry(device):
+    """Phase 14d: `usot_tpu_torch.entry.entry()` once: the output shapes
+    and K1's three launches. Returns (record, K1 launches)."""
+    from usot_tpu_torch.entry import entry
+
+    fn, args = entry(device)
+    reset_launch_counts()  # entry's path starts here
+    out = fn(*args)
+    sync(device)
+    k1 = launch_counts()["K1"]  # read just after the path
+    shapes = [list(o.shape) for o in out]
+    check(shapes == [[1, 25, 25, 1], [1, 25, 25, 4], [1, 25, 25, 1],
+                     [1, 31, 31, 256]], f"entry shapes {shapes}")
+    check(all(bool(torch.isfinite(o).any()) for o in out), "entry: no "
+          "finite output")
+    if device.type == "cuda":
+        check(k1 == 3, f"entry: {k1} K1 launches, expected 3")
+    rec = {"shapes": shapes, "k1_launches": k1}
+    print(json.dumps({"entry": rec}), flush=True)
+    return rec, k1
+
+
 # ------------------------------------------------------------------- main
 
 def ptxas_report(built):
@@ -2529,6 +2999,17 @@ def main() -> int:
     bf16_train_rec, bf16_train_launches = run_training_bf16(
         device, f32_steps=train_rec["steps"])
     mining_rec, mining_launches = run_pseudo_labels(device, card=card)
+    # phase 14: the TraX entry point, the evaluation, the one-key chain
+    t14 = time.perf_counter()
+    trax_rec, trax_k1 = run_trax(device, card=card)
+    vot, refill = protocol_datasets()
+    eval_rec = score_protocols(os.path.join(OUT_DIR, "protocols"),
+                               proto_rec, vot, refill, card=card)
+    del vot, refill
+    onekey_rec, onekey_k1 = run_onekey(device, card=card)
+    entry_rec, entry_k1 = run_entry(device)
+    phase14_s = time.perf_counter() - t14
+    print(f"phase 14: {phase14_s:.1f} s", flush=True)
 
     def pick(records, tag, shape):
         return next(r for r in records
@@ -2536,7 +3017,8 @@ def main() -> int:
 
     k1_paths = {"parity_slice": slice_k1, "batch_engine": batch_k1,
                 "scan_engine": scan_k1, "protocols": proto_k1,
-                "batch_engine_bf16": bf16_k1, "fixture_f32_bf16": fixture_k1}
+                "batch_engine_bf16": bf16_k1, "fixture_f32_bf16": fixture_k1,
+                "trax": trax_k1, "onekey": onekey_k1, "entry": entry_k1}
     k1_line = kernel_line("K1", pick(
         k1_records, "K1", "engine, instance 255, B=32, M=7, C=256, f32"),
         sum(k1_paths.values()), {**k1_paths, "tools": tool_counts["K1"],
@@ -2578,7 +3060,9 @@ def main() -> int:
                "training": train_rec, "training_bf16": bf16_train_rec,
                "live_loader": {"alone": bf16_train_rec["live_loader"],
                                "pipelined": bf16_train_rec["pipelined"]},
-               "pseudo_labels": mining_rec,
+               "pseudo_labels": mining_rec, "trax": trax_rec,
+               "evaluate": eval_rec, "onekey": onekey_rec,
+               "entry": entry_rec, "phase14_s": phase14_s,
                "seconds": time.perf_counter() - t_start}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

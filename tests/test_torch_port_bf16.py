@@ -109,15 +109,28 @@ def _hold_k1(stage, ours, want_bf16, want_f32):
     five times: a standing deviation of the same size as JAX's own
     rounding error. Held by accuracy instead: the port's RMS gap to JAX's
     float32 at most 1.25x JAX's bfloat16 gap to it, and the scale-aware
-    max gap to JAX's bfloat16 under `ABS_TOL`."""
+    max gap under `ABS_TOL`, to JAX's bfloat16 in every cell where JAX's
+    bfloat16 lies within that ceiling of JAX's float32, and to JAX's
+    float32 in the cells where it does not: such a cell is JAX bfloat16's
+    own outlier and cannot judge the port (on random weights, the bbox
+    `exp` at the edge of its underflow: float32 and the port 0, JAX's
+    bfloat16 46592 in one cell of 1188, on some CPUs)."""
     ours, bf, f32 = _finite(stage, ours, want_bf16, want_f32,
                             same_overflow=False)
+    ceiling = ABS_TOL[stage.split("/")[0]]
     mine, own = _rms_gap(ours, f32), _rms_gap(bf, f32)
-    worst = scaled_err(ours, bf)
+    outlier = np.abs(bf - f32) / max(float(np.abs(f32).max()), 1.0) \
+        > ceiling
+    worst = max(scaled_err(ours[~outlier], bf[~outlier])
+                if (~outlier).any() else 0.0,
+                scaled_err(ours[outlier], f32[outlier])
+                if outlier.any() else 0.0)
     print(f"{stage} (K1): rms port vs JAX f32 {mine:.3e}, JAX bf16 vs f32 "
-          f"{own:.3e}; scaled max port vs JAX bf16 {worst:.3e}")
+          f"{own:.3e}; scaled max port {worst:.3e} over "
+          f"{int((~outlier).sum())} cells judged by JAX bf16, "
+          f"{int(outlier.sum())} by JAX f32")
     assert mine <= 1.25 * own, (stage, mine, own)
-    assert worst <= ABS_TOL[stage.split("/")[0]], (stage, worst)
+    assert worst <= ceiling, (stage, worst)
 
 
 # ----------------------------------------------------------------- stages
@@ -222,12 +235,8 @@ def test_encodings_and_pooling_match_jax_bf16(nets, stages):
         _hold(f"encode_memory_kernels/{i}", mem[i], want[i], ref[i])
 
 
-@pytest.mark.parametrize("k1", [False, True], ids=["unfused", "k1"])
-@pytest.mark.parametrize("folded", [False, True], ids=["plain", "folded"])
-def test_heads_match_jax_bf16(nets, stages, folded, k1):
-    """cls, bbox and cls_mem from the same search features, template and
-    queue encodings; unfolded and on the folded head (folded in float32,
-    cast once to bfloat16 in both packages)."""
+def _port_heads(nets, stages, folded, k1):
+    """The port's (cls, bbox, cls_mem) in bfloat16 on the stage inputs."""
     pm = nets[2][k1]
     xf = _bf16(stages["search_features"][0])[:1]
     want_t, _ = stages["encode_template"]
@@ -243,11 +252,42 @@ def test_heads_match_jax_bf16(nets, stages, folded, k1):
             outs = pm.track_memory_encoded_fused(xf, zf_enc, queue, fused)
         else:
             outs = pm.track_memory_encoded(xf, zf_enc, queue)
+    return outs
+
+
+@pytest.mark.parametrize("k1", [False, True], ids=["unfused", "k1"])
+@pytest.mark.parametrize("folded", [False, True], ids=["plain", "folded"])
+def test_heads_match_jax_bf16(nets, stages, folded, k1):
+    """cls, bbox and cls_mem from the same search features, template and
+    queue encodings; unfolded and on the folded head (folded in float32,
+    cast once to bfloat16 in both packages)."""
+    outs = _port_heads(nets, stages, folded, k1)
     stage = "heads_fused" if folded else "heads"
     want, ref = stages[stage]
     for name, ours, w, r in zip(("cls", "bbox", "cls_mem"), outs, want, ref):
         assert ours.dtype == BF16
         (_hold_k1 if k1 else _hold)(f"{stage}/{name}", ours, w, r)
+
+
+def test_k1_heads_check_fails_a_perturbed_bbox(nets, stages):
+    """`_hold_k1` still fails a wrong K1 route: the port's bbox (plain
+    head, K1's route) moved by 32 bfloat16 ulps of the map's scale
+    (0.125-0.25 of it, past `ABS_TOL`) in three finite cells, JAX
+    bfloat16's outlier cells (judged by JAX's float32) first where the
+    weights give any, fails it; unmoved it passes."""
+    bbox = _np(_port_heads(nets, stages, False, True)[1])
+    want, ref = (_np(a[1]) for a in stages["heads"])
+    _hold_k1("heads/bbox", torch.from_numpy(bbox).to(BF16), want, ref)
+    finite = np.isfinite(bbox) & np.isfinite(want) & np.isfinite(ref)
+    scale = max(float(np.abs(ref[finite]).max()), 1.0)
+    apart = finite & (np.abs(want - ref) / scale > ABS_TOL["heads"])
+    cells = np.concatenate([np.flatnonzero(apart),
+                            np.flatnonzero(finite & ~apart)])[:3]
+    moved = bbox.reshape(-1).copy()
+    moved[cells] += 32 * 2.0 ** (np.floor(np.log2(scale)) - 7)
+    moved = torch.from_numpy(moved.reshape(bbox.shape)).to(BF16)
+    with pytest.raises(AssertionError, match="heads/bbox"):
+        _hold_k1("heads/bbox", moved, want, ref)
 
 
 def test_batchnorm_rounds_once_as_flax():

@@ -252,14 +252,30 @@ def test_got_layout_matches_jax(env, engine):
 
 
 def test_evaluate_scores_the_port_results(env):
+    """`usot_tpu.cli.evaluate` scores the port's result files, and the
+    port's own `evaluate` gives the same numbers."""
     from usot_tpu.cli.evaluate import evaluate
+    from usot_tpu_torch.cli.evaluate import evaluate as port_evaluate
+
+    def equal(ours, theirs):
+        if isinstance(theirs, dict):
+            assert list(ours) == list(theirs)
+            for k in theirs:
+                equal(ours[k], theirs[k])
+        else:  # arrays and lists of numbers, NaN where NaN
+            np.testing.assert_array_equal(ours, theirs)
+
+    def both(name, result_dir):
+        out = evaluate(name, str(env.root), result_dir, ["USOT"])
+        equal(port_evaluate(name, str(env.root), result_dir, ["USOT"]), out)
+        return out
 
     otb = _port(env, "OTB2015", "scan", "--engine", "scan")
-    out = evaluate("OTB2015", str(env.root), str(otb.parent), ["USOT"])
+    out = both("OTB2015", str(otb.parent))
     for success in out["success"]["USOT"].values():
         assert success.shape == (21,) and success[0] > 0
     vot = _port(env, "VOT2018", "vot-batch", "--engine", "batch")
-    out = evaluate("VOT2018", str(env.root), str(vot.parent), ["USOT"])
+    out = both("VOT2018", str(vot.parent))
     assert out["ar"]["USOT"]["failures"] == {"ball": [1], "bolt": [0],
                                              "crab": [1]}
 

@@ -47,9 +47,38 @@ def test_importing_every_module_loads_no_jax():
                  "data.dataset", "data.loader", "cli.make_shards",
                  "preprocessing.correlation", "preprocessing.pwclite",
                  "preprocessing.flow2box", "preprocessing.inference",
-                 "preprocessing.crop_gen", "cli.parse_flow"):
+                 "preprocessing.crop_gen", "cli.parse_flow",
+                 *SLICE_9_MODULES):
         assert "usot_tpu_torch." + name in loaded, name
     assert [m for m in loaded if _forbidden(m)] == []
+
+
+# the TraX entry point, the evaluation toolkit and the one-key pipeline
+SLICE_9_MODULES = ("eval.trax_protocol", "cli.vot_wrapper", "eval.region",
+                   "eval.statistics", "eval.datasets", "eval.benchmarks",
+                   "eval.visualization", "cli.evaluate", "cli.test_epochs",
+                   "cli.onekey", "tools.onekey_synthetic", "utils.profiling",
+                   "entry")
+
+
+def test_evaluation_and_pipeline_import_no_optional_library():
+    """The TraX wrapper, the evaluation toolkit, the one-key pipeline,
+    the profiling helpers and `entry` import neither OpenCV, Pillow,
+    PyYAML, matplotlib, numba nor the pip `trax` package at module level
+    (the GPU machine has none of them), nor anything of JAX."""
+    script = textwrap.dedent("""
+        import importlib, sys
+        for name in %r:
+            importlib.import_module("usot_tpu_torch." + name)
+        print(sorted(n for n in sys.modules if n.split(".")[0] in
+                     ("cv2", "PIL", "yaml", "matplotlib", "numba", "trax",
+                      "jax", "jaxlib", "flax", "usot_tpu")))
+    """ % (SLICE_9_MODULES,))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300,
+                          check=True)
+    assert proc.stdout.split() == ["[]"]
 
 
 def test_training_imports_no_optional_library():
@@ -94,7 +123,7 @@ def test_no_source_file_names_jax():
     assert len(paths) > 20
     for tool in ("bench_xcorr.py", "bench_memhead.py", "profile_engine.py",
                  "timing.py", "synthetic_shards.py", "measure_bf16_drift.py",
-                 "ab_card_layers.py"):
+                 "ab_card_layers.py", "onekey_synthetic.py"):
         assert os.path.join(PORT, "tools", tool) in paths
     for path in paths:
         with open(path) as f:
@@ -157,6 +186,16 @@ def test_entry_points_raise_without_a_gpu(tmp_path):
                          "--output_dir", str(tmp_path / "out"),
                          "--flow_ckpt", str(tmp_path / "none.tar")])
     assert not any(tmp_path.iterdir())
+    # the TraX wrapper, before it builds a model or speaks the protocol
+    import io
+
+    from usot_tpu_torch.cli import vot_wrapper
+
+    fout = io.StringIO()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        vot_wrapper.run(str(tmp_path / "none.pth"), "mask",
+                        fin=io.StringIO(""), fout=fout)
+    assert fout.getvalue() == ""
 
 
 def test_only_imageio_touches_an_image_library():

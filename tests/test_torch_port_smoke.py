@@ -518,6 +518,119 @@ def test_mining_checks_catch_a_wrong_flow():
         chip_smoke.mining_vs_cpu(card, cpu, frames, [(3, 4, 0.1)], [[]])
 
 
+def test_png_bytes_decode_to_the_frame(tmp_path):
+    """Phase 14's PNG writer (zlib, no image library): a decoder reads
+    back the frame and `_image_size` its size."""
+    Image = pytest.importorskip("PIL.Image")  # a decoder of its own
+    from usot_tpu_torch.eval.datasets import _image_size
+
+    rng = np.random.default_rng(0)
+    frame = (rng.random((37, 53, 3)) * 255).astype(np.uint8)
+    path = tmp_path / "f.png"
+    path.write_bytes(chip_smoke.png_bytes(frame))
+    with Image.open(path) as im:
+        np.testing.assert_array_equal(np.asarray(im)[..., ::-1], frame)
+    assert _image_size(str(path)) == (53, 37)
+    store = chip_smoke.FrameStore()
+    store.write(str(tmp_path / "a" / "b.png"), frame)
+    store.write(str(tmp_path / "c.x.jpg"), frame[:4])
+    assert (tmp_path / "a" / "b.png").exists()
+    assert not (tmp_path / "c.x.jpg").exists()  # held in memory only
+    assert store.read(tmp_path / "a" / "b.png") is frame
+    assert store.read(str(tmp_path / "none.png")) is None
+
+
+def test_trax_runs_at_small_width():
+    """Phase 14a at w8c32 on small frames: both sessions through the
+    pipes, regions equal to the direct tracker's."""
+    rec, launches = chip_smoke.run_trax(CPU, width=8, channels=32,
+                                        n_frames=6, rect_hw=(240, 320),
+                                        mask_hw=(256, 384))
+    assert launches == 0
+    for fmt in ("rectangle", "mask"):
+        r = rec[fmt]
+        assert r["max_abs_px_vs_direct"] <= 1e-3
+        assert r["max_abs_confidence_vs_direct"] <= 1e-5
+        assert r["ms_per_frame_median"] > 0
+    assert rec["mask"]["rle_encode_ms_median"] > 0
+
+
+def _write_vot_results(root, vot, fail_at):
+    """Restart-protocol result files of `vot`'s videos (boxes from the
+    ground truth, a failure at `fail_at[v]`); returns the skeletons."""
+    skeletons = {}
+    for v, video in vot.items():
+        rows, f, gt = [], 0, video["gt"]
+        while f < len(gt):
+            rows.append("1")
+            f += 1
+            while f < len(gt):
+                if f == fail_at.get(v):
+                    rows += ["2"] + ["0"] * min(4, len(gt) - f - 1)
+                    f += 5
+                    break
+                rows.append(",".join(repr(float(x)) for x in gt[f]))
+                f += 1
+        rows = rows[:len(gt)]
+        d = os.path.join(root, "batch", "VOT2018", "USOT", "baseline", v)
+        os.makedirs(d)
+        with open(os.path.join(d, v + "_001.txt"), "w") as fh:
+            fh.write("\n".join(rows) + "\n")
+        skeletons[v] = "".join("b" if "," in r else r for r in rows)
+    return skeletons
+
+
+def test_evaluate_scores_protocol_results(tmp_path):
+    """Phase 14b on result files laid out as phase 9 writes them: every
+    video scored, failures equal to the restarts, finite numbers; a
+    skeleton that disagrees fails the check."""
+    kw = dict(h=96, w=128, box=16, vot_lanes=3, vot_lengths=(48, 52),
+              chunk=8, refill_lengths=(3, 12), refill_videos=3)
+    vot, refill = chip_smoke.protocol_datasets(**kw)
+    root = str(tmp_path)
+    skeletons = _write_vot_results(root, vot, {"vot0": 20, "vot2": 31})
+    for v, video in refill.items():
+        d = os.path.join(root, "refill", "OTB2015", "USOT")
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, v + ".txt"), "w") as fh:
+            fh.write("".join(",".join(str(x) for x in g + [1, 1, 0, 0])
+                             + "\n" for g in video["gt"]))
+    proto = {"vot": {"skeletons": skeletons}}
+    rec = chip_smoke.score_protocols(root, proto, vot, refill)
+    assert rec["failures"] == {"vot0": 1, "vot1": 0, "vot2": 1}
+    assert rec["vot_videos"] == 3 and rec["otb_videos"] == 3
+    assert rec["auc"] > 0.9 and rec["accuracy"] > 0.9
+    assert np.isfinite(rec["eao_vot2019_window"])
+    assert os.path.exists(os.path.join(root, "VOT2019.json"))
+    proto["vot"]["skeletons"]["vot1"] = "12"
+    with pytest.raises(RuntimeError, match="phase 9's restarts"):
+        chip_smoke.score_protocols(root, proto, vot, refill)
+
+
+def test_onekey_runs_in_process_at_small_width(monkeypatch):
+    """Phase 14c at w8c32: mine, train two epochs, test both checkpoints,
+    evaluate, all in this process with the frames in memory."""
+    from usot_tpu_torch.cli import parse_flow
+    from usot_tpu_torch.preprocessing import inference
+
+    monkeypatch.setattr(parse_flow, "FlowHelper", lambda device=None:
+                        inference.FlowHelper(test_shape=(64, 96),
+                                             device=device))
+    rec, launches = chip_smoke.run_onekey(
+        CPU, n_frames=12, raw_hw=(96, 128), bench_hw=(192, 224),
+        bench_frames=6, batch=2, mem=2, iters=1, width=8, channels=32)
+    assert launches == 0
+    assert list(rec["stage_times"]) == ["preprocess", "train",
+                                        "test_epochs", "evaluate"]
+    assert rec["tested_frames"] == 2 * 2 * 5
+    assert all(np.isfinite(a) for a in rec["auc"].values())
+
+
+def test_entry_runs_on_the_cpu():
+    rec, launches = chip_smoke.run_entry(CPU)
+    assert launches == 0 and rec["shapes"][3] == [1, 31, 31, 256]
+
+
 def _cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")

@@ -11,7 +11,8 @@ raw result files in the reference's layouts, which
   else: <result_dir>/<ds>/<arch>/<video>.txt (1-indexed x, y)
 Runs on the GPU unless `--device cpu` is given; without a GPU and without
 it, it raises. Frame files are decoded by `data.imageio.read_image`
-(OpenCV or Pillow). `--dtype bfloat16` runs every engine in bfloat16
+(OpenCV or Pillow), or by the `reader` that `main(argv, reader)` is
+given. `--dtype bfloat16` runs every engine in bfloat16
 over float32 weights (`build_usot(dtype=...)`); `--resume` takes a torch
 `.pth` or a flax checkpoint (`.msgpack`, `.ckpt`: any other suffix), as
 the JAX CLI's `load_variables` does.
@@ -125,8 +126,10 @@ def _write_got_times(tracker_path, name, times):
             fh.write(f"{x:.6f}\n")
 
 
-def track_video(tracker, runner, video, args):
-    """The parity tracker over one video (reference-exact host loop)."""
+def track_video(tracker, runner, video, args, reader=None):
+    """The parity tracker over one video (reference-exact host loop).
+    `reader(src)` gives a frame's BGR uint8 array (default
+    `read_image`)."""
     tracker_path = _tracker_path(args)
     is_vot, is_got = "VOT" in args.dataset, "GOT" in args.dataset
     result_path = _result_path(args, tracker_path, video["name"])
@@ -137,8 +140,9 @@ def track_video(tracker, runner, video, args):
     regions, track_times = [], []
     image_files, gt = video["image_files"], video["gt"]
     state = None
+    reader = reader or read_image
     for f, image_file in enumerate(image_files):
-        im = read_image(image_file)
+        im = reader(image_file)
         if im is None:
             continue
         tic = time.perf_counter()
@@ -274,10 +278,10 @@ def _bucket(h, w):
     return (h + 127) // 128 * 128, (w + 127) // 128 * 128
 
 
-def _load_frames_padded(image_files):
+def _load_frames_padded(image_files, reader=None):
     """Decode a video and pad it onto its canvas bucket. Returns (frames
     as views into the canvas, (n, ch, cw, 3) canvas)."""
-    frames = [read_image(f) for f in image_files]
+    frames = [(reader or read_image)(f) for f in image_files]
     n = len(frames)
     im_h, im_w = frames[0].shape[:2]
     padded = np.zeros((n,) + _bucket(im_h, im_w) + (3,), np.uint8)
@@ -288,7 +292,7 @@ def _load_frames_padded(image_files):
     return frames, padded
 
 
-def track_video_scan(model, runner, video, args, engines):
+def track_video_scan(model, runner, video, args, engines, reader=None):
     """One video on the scan engine; a VOT restart re-enters the engine
     at frame f + 5 with a fresh init (the host checks the overlaps)."""
     tracker_path = _tracker_path(args)
@@ -297,7 +301,7 @@ def track_video_scan(model, runner, video, args, engines):
     if os.path.exists(result_path):
         return
 
-    frames, padded = _load_frames_padded(video["image_files"])
+    frames, padded = _load_frames_padded(video["image_files"], reader)
     n = len(frames)
     t0 = time.perf_counter()
     regions = [None] * n
@@ -314,7 +318,7 @@ def track_video_scan(model, runner, video, args, engines):
         video["name"], toc, (n - 1) / max(toc, 1e-9)))
 
 
-def _probe_groups(dataset, result_of):
+def _probe_groups(dataset, result_of, reader=None):
     """Pending videos grouped by (canvas bucket, instance size): one
     lockstep engine per group."""
     groups: dict = {}
@@ -322,7 +326,7 @@ def _probe_groups(dataset, result_of):
         video = dataset[name]
         if os.path.exists(result_of(video)):
             continue
-        im0 = read_image(video["image_files"][0])
+        im0 = (reader or read_image)(video["image_files"][0])
         _, _, w, h = get_axis_aligned_bbox(np.asarray(video["gt"][0]))
         key = _bucket(*im0.shape[:2]) + (
             TrackerConfig().instance_of((w, h), *im0.shape[:2]),)
@@ -340,13 +344,13 @@ def _make_batch_engine(engines, model, runner, instance, ch, cw, b, args,
     return engines[ekey]
 
 
-def _load_group_canvases(dataset, names, ch, cw):
+def _load_group_canvases(dataset, names, ch, cw, reader=None):
     """Decode and pad every video of a group. Returns (canvases, hws):
     canvases[v] (n_v, ch, cw, 3) uint8 with the real frames top-left,
     hws[v] = (h, w)."""
     canvases, hws = [], []
     for name in names:
-        frames = [im for im in map(read_image,
+        frames = [im for im in map(reader or read_image,
                                    dataset[name]["image_files"])
                   if im is not None]
         canvas = np.zeros((len(frames), ch, cw, 3), np.uint8)
@@ -362,7 +366,7 @@ def _init_box(video):
     return np.array([cx, cy]), np.array([w, h])
 
 
-def track_dataset_batched(model, runner, dataset, args):
+def track_dataset_batched(model, runner, dataset, args, reader=None):
     """Lockstep evaluation of a whole benchmark (protocols other than
     VOT): videos grouped by (canvas bucket, instance size), B lanes at a
     time on a `BatchScanEngine`.
@@ -374,7 +378,8 @@ def track_dataset_batched(model, runner, dataset, args):
     (videos, frames, lanes, seconds, fps, and the refill or ROI counts)."""
     tracker_path = _tracker_path(args)
     groups = _probe_groups(dataset,
-                           lambda v: join(tracker_path, f"{v['name']}.txt"))
+                           lambda v: join(tracker_path, f"{v['name']}.txt"),
+                           reader)
     engines: dict = {}
     records = []
 
@@ -389,7 +394,8 @@ def track_dataset_batched(model, runner, dataset, args):
     if args.refill and not roi_on:
         for (ch, cw, instance), names in groups.items():
             t0 = time.perf_counter()
-            canvases, hws = _load_group_canvases(dataset, names, ch, cw)
+            canvases, hws = _load_group_canvases(dataset, names, ch, cw,
+                                                 reader)
             videos = []
             for vi, name in enumerate(names):
                 pos0, sz0 = _init_box(dataset[name])
@@ -422,7 +428,8 @@ def track_dataset_batched(model, runner, dataset, args):
             engine = _make_batch_engine(engines, model, runner, instance,
                                         ch, cw, b, args)
             t0 = time.perf_counter()
-            canvases, hws = _load_group_canvases(dataset, group, ch, cw)
+            canvases, hws = _load_group_canvases(dataset, group, ch, cw,
+                                                 reader)
             vids, n_valid = [], []
             for vi, name in enumerate(group):
                 vids.append((canvases[vi][0][:hws[vi][0], :hws[vi][1]],)
@@ -465,7 +472,7 @@ def track_dataset_batched(model, runner, dataset, args):
     return records
 
 
-def track_dataset_vot_batched(model, runner, dataset, args):
+def track_dataset_vot_batched(model, runner, dataset, args, reader=None):
     """Lockstep VOT evaluation WITH the restart protocol: grouped lanes,
     overlaps checked on the host, per-lane re-init splice and chunk
     replay (`tracker.lockstep.run_vot_group`). A restart that flips the
@@ -475,7 +482,8 @@ def track_dataset_vot_batched(model, runner, dataset, args):
     frames, lanes, seconds, fps, chunks, replays, spills)."""
     tracker_path = _tracker_path(args)
     groups = _probe_groups(
-        dataset, lambda v: _result_path(args, tracker_path, v["name"]))
+        dataset, lambda v: _result_path(args, tracker_path, v["name"]),
+        reader)
     engines: dict = {}
     scan_engines: dict = {}
     records = []
@@ -485,7 +493,8 @@ def track_dataset_vot_batched(model, runner, dataset, args):
             group = names[i:i + args.batch]
             b = len(group)
             t0 = time.perf_counter()
-            canvases, hws = _load_group_canvases(dataset, group, ch, cw)
+            canvases, hws = _load_group_canvases(dataset, group, ch, cw,
+                                                 reader)
             gts = [dataset[name]["gt"] for name in group]
             engine = _make_batch_engine(engines, model, runner, instance,
                                         ch, cw, b, args, max_frames=2048)
@@ -542,7 +551,10 @@ def load_model(args, device):
     return calibrate_batch_stats(model, n_iter=10)
 
 
-def main(argv=None):
+def main(argv=None, reader=None):
+    """Track `--dataset`; `reader(path)` gives a frame's BGR uint8 array
+    (default `data.imageio.read_image`: frames held in memory on a
+    machine with no image codec)."""
     from usot_tpu_torch.tracker.runner import ModelRunner
     from usot_tpu_torch.tracker.tracker import USOTTracker
 
@@ -558,21 +570,22 @@ def main(argv=None):
 
     if args.engine == "batch":
         if "VOT" in args.dataset:
-            track_dataset_vot_batched(model, runner, dataset, args)
+            track_dataset_vot_batched(model, runner, dataset, args, reader)
             return
         if "GOT" in args.dataset:
             raise SystemExit("engine=batch writes OTB-style result files; "
                              "use --engine scan for the GOT-10k layout")
-        track_dataset_batched(model, runner, dataset, args)
+        track_dataset_batched(model, runner, dataset, args, reader)
         return
 
     tracker = USOTTracker()
     engines: dict = {}
     for name in list(dataset.keys()):
         if args.engine == "scan":
-            track_video_scan(model, runner, dataset[name], args, engines)
+            track_video_scan(model, runner, dataset[name], args, engines,
+                             reader)
         else:
-            track_video(tracker, runner, dataset[name], args)
+            track_video(tracker, runner, dataset[name], args, reader)
 
 
 if __name__ == "__main__":

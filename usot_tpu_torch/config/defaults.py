@@ -138,6 +138,12 @@ def update_config(cfg: EDict, config_file: str) -> EDict:
 
     with open(config_file) as f:
         exp = yaml.safe_load(f.read())
+    return update_config_dict(cfg, exp)
+
+
+def update_config_dict(cfg: EDict, exp: dict) -> EDict:
+    """Merge an experiment's contents ({"USOT": {...}}, as a YAML file
+    holds them) into cfg, validating keys exist."""
     model_name = list(exp.keys())[0]
     if model_name not in ("USOT",):
         raise ValueError("unsupported model name %r in config" % model_name)

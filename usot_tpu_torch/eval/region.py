@@ -3,7 +3,8 @@ pure-NumPy mirror of the identical algorithm.
 
 The port's own copy of `vot_overlap` and what it needs from
 `usot_tpu/eval/region.py` (ref: lib/eval_toolkit/pysot/utils/src/region.c,
-region.pyx): host code, called by `poly_iou` for non-convex polygons.
+region.pyx): host code, called by `poly_iou` for non-convex polygons and
+by the evaluation statistics (`vot_overlap_traj`).
 The C++ source is the repo's `native/region/region.cpp`, built with g++
 on first use into the port's git-ignored `_build/`; where it cannot be
 built or loaded, the NumPy mirror computes the same overlap.
@@ -13,7 +14,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -184,3 +185,14 @@ def vot_overlap(polygon1, polygon2, bounds=None) -> float:
             ctypes.c_double(bt[2]), ctypes.c_double(bt[3])))
     return float(_overlap_np(p1, p2, bt))
 
+
+
+def vot_overlap_traj(polygons1: Sequence, polygons2: Sequence,
+                     bounds=None) -> List[float]:
+    assert len(polygons1) == len(polygons2)
+    return [vot_overlap(polygons1[i], polygons2[i], bounds=bounds)
+            for i in range(len(polygons1))]
+
+
+def vot_float2str(template: str, value: float) -> str:
+    return template % value
