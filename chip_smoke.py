@@ -147,6 +147,38 @@ Phases, each of which raises on failure (exit code != 0):
      K1 3 times per tested frame (`launches_by_path["onekey"]`);
      (d) `usot_tpu_torch.entry.entry()` once: its output shapes and K1's
      three launches (`launches_by_path["entry"]`).
+ 15. data parallelism (run after phase 14), one card standing in for two:
+     (a) `BatchScanEngine(mesh=make_mesh(devices=[cuda:0, cuda:0]))` at
+     `bench.py`'s configuration (B=32 as two shards of 16, 480x640,
+     chunk 64, 129 frames) on phase 7's weights, in f32 and in bf16:
+     teacher-forced for the first chunk's 64 steps (each step from the
+     unsharded engine's carry) against the unsharded engine: in f32
+     every lane's positions, sizes, scores and memory confidences at
+     scale-aware 1e-3; in bf16 the first step's search features and
+     heads per shard at `BF16_LANE_TOL`, and on every step the scores
+     and memory confidences at `BF16_LANE_TOL` on the lanes whose
+     score-map argmax agrees with the unsharded engine's (at least half
+     of them; on random weights bf16 rounding flips it between
+     near-equal cells), the positions and sizes recorded; a warm chunk
+     under `torch.cuda.set_sync_debug_mode("error")`; K1 exactly 3 x 2
+     launches per frame step, each on 16 lanes
+     (`launches_by_path["sharded"]`); a splice into lanes 15 and 16,
+     across the shard boundary, against the unsharded engine's; ms per
+     step and frames/s beside phases 7 and 11 (the cost of the split on
+     one card, not a scaling figure); the trained w8c32 fixture's
+     sharded tracks within 2e-3 px of its unsharded ones, f32 and bf16;
+     (b) two training ranks on the card over gloo, full width, B=12 per
+     rank (global 24), 4 memory frames: one step each of naive frozen,
+     cycle frozen, cycle unfrozen and cycle frozen with accum=2 against
+     one process on the card with the global batch (losses 1e-4
+     relative, gradients 1e-3 scale-aware, the ranks' parameters equal
+     bitwise; unfrozen: the BN running stats within 1e-4, the gradient
+     gap recorded), and with BN sync off the frozen cycle step's BN
+     stats missing that bound by far; peak memory and ms per step per
+     rank beside phase 10's;
+     (c) `cli.train.train` with `--devices 1` over NCCL (a group of one)
+     for 2 steps, and `entry.dryrun_multichip(2)` (two gloo ranks on the
+     card).
 The line before the last is the `kernels` JSON object, the last
 {"ok": true, "device": {...}}. Without CUDA the script exits with an
 error and prints no result. It imports nothing of JAX.
@@ -167,8 +199,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from usot_tpu_torch.ops.xcorr_kernel import launch_counts, \
-    launch_dtypes, reset_launch_counts
+from usot_tpu_torch.ops.xcorr_kernel import launch_batches, \
+    launch_counts, launch_dtypes, reset_launch_counts
 from usot_tpu_torch.tools.synthetic_shards import training_sample, \
     write_training_shards
 from usot_tpu_torch.tools.timing import card_line, time_call_ms, \
@@ -2922,6 +2954,471 @@ def run_entry(device):
     return rec, k1
 
 
+# ------------------------------------------------------- data parallelism
+
+def _gap(a, b):
+    """max |a - b| over max(max |b|, 1), as float64 on the host."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1.0)
+
+
+def _step_gaps(out_s, out_p, conf_s, conf_p):
+    """Per lane, scale-aware gaps of one step's pos, sz, score and memory
+    confidences: {key: (B,) float64}."""
+    got = dict(zip(("pos", "sz", "score"), out_s), mem_conf=conf_s)
+    want = dict(zip(("pos", "sz", "score"), out_p), mem_conf=conf_p)
+    gaps = {}
+    for k in got:
+        a = got[k].detach().double().cpu().reshape(got[k].shape[1], -1)
+        b = want[k].detach().double().cpu().reshape(want[k].shape[1], -1)
+        scale = max(float(b.abs().max()), 1.0)
+        gaps[k] = ((a - b).abs().amax(dim=1) / scale).numpy()
+    return gaps
+
+
+def _picked_cells(sharded, plain, st_p, frames):
+    """(B,) bool: the lanes whose step from the unsharded carry `st_p` on
+    `frames` (B, H, W, 3) picks, in each shard, the score-map cell the
+    unsharded engine picks."""
+    from usot_tpu_torch.tracker.engine import best_cells
+
+    def cells(eng, st, x):
+        scale_z, xf = eng._search(st, x, eng._avg_b, eng._im_hw_b,
+                                  eng._origin0)
+        return best_cells(eng.p, eng._consts, st.sz, scale_z,
+                          *eng._heads(st, xf)).to(plain.device)
+
+    with torch.inference_mode():
+        want = cells(plain, st_p, frames)
+        got = torch.cat([cells(sh, sst, frames[a:b]) for sh, sst, (a, b) in
+                         zip(sharded._shards,
+                             sharded.scatter_state(st_p).shards,
+                             sharded._lanes)])
+    return (got == want).cpu().numpy()
+
+
+# bf16: the keys held on the lanes whose argmax cell agrees
+BF16_HELD = ("score", "mem_conf")
+
+
+def _hold_gaps(gaps, agree, tol, bf16, label, min_agree=0.5):
+    """f32: every gap within `tol`. bf16: the scores and memory
+    confidences within `tol` on the lane-steps whose score-map argmax
+    agrees with the unsharded engine's (`agree`, a list of (B,) bool
+    like each key's gaps; at least `min_agree` of them must agree), the
+    positions and sizes recorded. There the two engines' bf16
+    convolutions (B=16 against B=32) round apart, and on random weights
+    the argmax flips between near-equal cells whose boxes lie pixels
+    apart and whose scores differ. Returns the record."""
+    rec = {}
+    if bf16:
+        agree = np.concatenate(agree)
+        rec["argmax_agrees_share"] = share = float(np.mean(agree))
+        check(share >= min_agree, f"sharded engine {label}: the argmax "
+              f"agrees with the unsharded engine's on {share} of the "
+              f"lane-steps (at least {min_agree})")
+    for k, g in gaps.items():
+        g = np.concatenate(g)
+        held = not bf16 or k in BF16_HELD
+        ga = g[agree] if bf16 else g
+        over = float(np.mean(~(ga <= tol))) if ga.size else 0.0
+        rec[k] = {"max": float(np.max(g)),
+                  "share_over_tol": float(np.mean(~(g <= tol))),
+                  "held": held}
+        if bf16:
+            rec[k].update(max_agreeing=float(np.max(ga)) if ga.size else 0.0,
+                          share_over_tol_agreeing=over)
+        check(not held or over == 0.0,
+              f"sharded engine {label} against the unsharded engine: {k} "
+              f"{rec[k]}, tol {tol}")
+    return rec
+
+
+def _stages_vs_plain(sharded, plain, st_p, frames, tol, label):
+    """One frame step stage by stage from the unsharded carry `st_p`,
+    each shard against the unsharded engine's lanes, scale-aware at
+    `tol`: the crop and backbone (search features), and the heads fed
+    the unsharded engine's features (cls, cls_mem, and the boxes in
+    their exponent on the cells finite on both sides: random weights
+    overflow the bbox exp; in bf16 at most 1 % of the cells may
+    overflow on one side only, as phase 11 allows)."""
+    st_s = sharded.scatter_state(st_p)
+    rec = {}
+    with torch.inference_mode():
+        _, xf_p = plain._search(st_p, frames, plain._avg_b, plain._im_hw_b,
+                                plain._origin0)
+        heads_p = plain._heads(st_p, xf_p)
+        for sh, sst, (a, b) in zip(sharded._shards, st_s.shards,
+                                   sharded._lanes):
+            _, xf_s = sh._search(sst, frames[a:b], sh._avg_b, sh._im_hw_b,
+                                 sh._origin0)
+            heads_s = sh._heads(sst, xf_p[a:b])
+            pairs = {"search_features": (xf_s, xf_p[a:b]),
+                     "cls": (heads_s[0], heads_p[0][a:b]),
+                     "bbox_exponent": (torch.log(heads_s[1]),
+                                       torch.log(heads_p[1][a:b])),
+                     "cls_mem": (heads_s[2], heads_p[2][a:b])}
+            for k, (x, y) in pairs.items():
+                both = torch.isfinite(x) & torch.isfinite(y)
+                differ = int((torch.isfinite(x) != torch.isfinite(y)).sum())
+                gap = _gap(x[both], y[both])
+                check(bool(both.any()) and gap <= tol and differ <= (
+                    0.01 * x.numel() if label.startswith("bf") else 0),
+                      f"sharded engine {label}, lanes {a}-{b - 1}, {k}: "
+                      f"{gap} (tol {tol}), {differ} cells overflow on one "
+                      "side")
+                prev = rec.get(k, {"max": 0.0, "overflow_differs": 0})
+                rec[k] = {"max": max(prev["max"], gap), "overflow_differs":
+                          prev["overflow_differs"] + differ}
+    return rec
+
+
+def _sharded_vs_plain(sharded, plain, st_p, block, valid, forced, tol,
+                      label):
+    """`forced` frame steps, each from the unsharded engine's carry: the
+    sharded engine's positions, sizes, scores and memory confidences
+    against the unsharded engine's, scale-aware per lane. Returns (the
+    record, the unsharded carry after the steps)."""
+    gaps = {k: [] for k in ("pos", "sz", "score", "mem_conf")}
+    bf16, agree = label.startswith("bf"), []
+    for t in range(forced):
+        b, v = block[t:t + 1], valid[t:t + 1]
+        if bf16:
+            agree.append(_picked_cells(sharded, plain, st_p, block[t]))
+        st_s, out_s = sharded.run_chunk(sharded.scatter_state(st_p), b, v,
+                                        donate=False)
+        st_p, out_p = plain.run_chunk(st_p, b, v)
+        conf_s = torch.cat([sh.mem_conf for sh in st_s.shards])
+        for k, g in _step_gaps(out_s, out_p, conf_s[None],
+                               st_p.mem_conf[None]).items():
+            gaps[k].append(g)
+    return _hold_gaps(gaps, agree, tol, bf16, label), st_p
+
+
+def _splice_boundary(sharded, plain, st_p, runner, frames, block, valid,
+                     tol, label):
+    """The two lanes either side of the shard boundary (15 and 16 at
+    B=32) spliced with fresh videos into the unsharded carry `st_p` and
+    into a sharded copy of it: the gathered sharded carry equals the
+    unsharded one bitwise, and one step after, every lane's outputs are
+    held as the teacher-forced steps are."""
+    st_s = sharded.scatter_state(_clone(st_p))
+    half = sharded.batch // 2
+    lanes = [half - 1, half]
+    inits = [(frames[5], np.array([230.0, 250.0]), np.array([50.0, 70.0])),
+             (frames[9], np.array([180.0, 230.0]), np.array([64.0, 48.0]))]
+    fresh = sharded.make_lane_states(inits, runner)
+    st_s = sharded.splice_lanes(st_s, lanes, fresh)
+    st_p = plain.splice_lanes(st_p, lanes, fresh)
+    equal = all(torch.equal(a, b) for a, b in zip(
+        _leaves(sharded.gather_state(st_s)) + [sharded._avg_b,
+                                                sharded._im_hw_b],
+        _leaves(st_p) + [plain._avg_b, plain._im_hw_b]))
+    check(equal, f"sharded splice {label}: lanes {lanes} differ from the "
+          "unsharded splice")
+    agree = _picked_cells(sharded, plain, st_p, block[0])
+    st_s, out_s = sharded.run_chunk(st_s, block[:1], valid[:1])
+    st_p, out_p = plain.run_chunk(st_p, block[:1], valid[:1])
+    conf_s = torch.cat([sh.mem_conf for sh in st_s.shards])
+    gaps = _step_gaps(out_s, out_p, conf_s[None], st_p.mem_conf[None])
+    rec = _hold_gaps({k: [g] for k, g in gaps.items()}, [agree], tol,
+                     label.startswith("bf"), f"{label} after the splice")
+    moved = float((out_p[0][:, half] - out_p[0][:, 0]).abs().max())
+    check(moved > 1.0, f"splice {label}: lane {half} still tracks lane 0")
+    return {"lanes": lanes, "carry_equal": equal, "step": rec}
+
+
+def run_sharded_engine(model, device, f32_rec, bf16_rec, batch=32,
+                       n_frames=129, chunk=64, forced=64, repeats=2, h=480,
+                       w=640, card=""):
+    """Phase 15a: the sharded batch engine on one card (two shards on
+    `device`), f32 then bf16, against the unsharded engine. Returns
+    (record, K1 launches on the sharded path).
+
+    Held (`_hold_gaps`): the lanes' outputs on `forced` teacher-forced
+    steps and one step after a splice across the shard boundary. The
+    timed runs track
+    free-running on random weights, which walk the tracker off and, in
+    a B=16 batch, to non-finite boxes (an unsharded engine of B=16 does
+    the same at the same step on the same frames): their values are
+    counted, not held."""
+    from usot_tpu_torch.parallel.mesh import make_mesh
+    from usot_tpu_torch.tracker.engine import BatchScanEngine, \
+        synthetic_video as bench_video
+    from usot_tpu_torch.tracker.runner import ModelRunner
+
+    mesh = make_mesh(devices=[device, device])
+    p = _tracker_config("small")
+    frames = bench_video(n_frames, h=h, w=w)
+    videos = [(frames[0], np.array([200.0, 240.0]), np.array([60.0, 60.0]))
+              for _ in range(batch)]
+    single = np.stack(frames[1:])
+    all_frames = np.broadcast_to(single[None], (batch,) + single.shape)
+    n_steps = n_frames - 1
+    rec, k1_path = {"mesh": [str(d) for d in mesh.devices],
+                    "shards": mesh.size, "batch": batch, "chunk": chunk,
+                    "frames": n_frames, "card": card}, 0
+    for label, m, tol, ref in (
+            ("float32", model, 1e-3, f32_rec),
+            ("bfloat16", bf16_model(model), BF16_LANE_TOL, bf16_rec)):
+        runner = ModelRunner(m, device=device)
+        kw = dict(max_frames=max(256, n_frames + 8), chunk=chunk)
+        plain = BatchScanEngine(m, p, h, w, batch, device=device, **kw)
+        sharded = BatchScanEngine(m, p, h, w, batch, mesh=mesh, **kw)
+        staged = sharded.stage_frames(all_frames, np.full(batch, n_steps))
+        _, block, valid = staged[0]
+        st = sharded.init_batch(videos, runner)
+        st_p = plain.init_batch(videos, runner)
+        stages = _stages_vs_plain(sharded, plain, st_p, block[0], tol, label)
+        forced_rec, st_p = _sharded_vs_plain(sharded, plain, st_p, block,
+                                             valid, forced, tol, label)
+        sync(device)
+        reset_launch_counts()  # the sharded path starts here
+        t0 = time.perf_counter()
+        with no_host_sync(device):
+            st, outs = sharded.run_chunk(st, block, valid)
+        pos = [sharded._collate([(chunk, outs)])[0]]
+        warm_s = time.perf_counter() - t0
+        rest = staged[1:]
+        n_rest = sum(nb for nb, _, _ in rest)
+        step_ms = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            st, p_rest, _, _ = sharded.track_staged(st, rest)
+            step_ms.append((time.perf_counter() - t0) / n_rest * 1e3)
+            pos.append(p_rest)
+        steps = chunk + repeats * n_rest
+        k1 = launch_counts()["K1"]  # read just after the path
+        by_batch = launch_batches()["K1"]
+        if device.type == "cuda":
+            check(k1 == 3 * mesh.size * steps
+                  and by_batch == {batch // mesh.size: k1},
+                  f"sharded engine {label}: K1 launches {by_batch} for "
+                  f"{steps} steps, expected {3 * mesh.size * steps} on "
+                  f"{batch // mesh.size} lanes")
+        k1_path += k1
+        pos = np.concatenate(pos, axis=1)
+        check(pos.shape == (batch, steps, 2)
+              and int(sharded.gather_state(st).mem_len.min()) == 1 + steps,
+              f"sharded engine {label}: {pos.shape}, mem_len")
+        splice = _splice_boundary(sharded, plain, st_p, runner, frames,
+                                  block, valid, tol, label)
+        ms = statistics.median(step_ms)
+        bad = ~np.isfinite(pos).all(axis=2)
+        rec[label] = {
+            "tol": tol, "stages_first_step": stages,
+            "teacher_forced_steps": forced,
+            "teacher_forced_gap": forced_rec,
+            "splice_across_boundary": splice, "warm_chunk_s": warm_s,
+            "ms_per_step": step_ms, "ms_per_step_median": ms,
+            "fps_median": batch * 1e3 / ms, "frame_steps": steps,
+            "free_running_nonfinite_lanes": int(bad.any(axis=1).sum()),
+            "free_running_first_nonfinite_step":
+                int(np.argmax(bad.any(axis=0))) if bad.any() else None,
+            "k1_launches": k1, "k1_launches_per_step": k1 / steps,
+            "k1_launches_by_lanes": by_batch,
+            "unsharded": {k: ref[k] for k in (
+                "ms_per_step_median", "fps_median",
+                "k1_launches_per_step")}}
+        print(json.dumps({f"sharded_engine_{label}": rec[label]}),
+              flush=True)
+        del plain, sharded, st, st_p, staged, block, valid
+    rec["fixture"] = sharded_fixture(device)
+    return rec, k1_path
+
+
+def sharded_fixture(device, n_frames=21, box=48, size=320, batch=4,
+                    tol_px=2e-3):
+    """The trained w8c32 fixture on `run_fixture`'s video: B=4 lanes
+    (ragged) sharded over two shards of `device` against the unsharded
+    engine, free-running, in f32 and in bf16, within `tol_px` (JAX's
+    mesh tolerance; the card measured 0 px in both). Returns the
+    record."""
+    from usot_tpu_torch.models.usot import build_usot
+    from usot_tpu_torch.parallel.mesh import make_mesh
+    from usot_tpu_torch.tracker.engine import BatchScanEngine
+    from usot_tpu_torch.tracker.runner import ModelRunner
+    from usot_tpu_torch.train.checkpoint import load_model_state
+    from usot_tpu_torch.utils.msgpack import read_msgpack
+
+    meta = read_msgpack(FIXTURE)
+    kw = {k: int(meta[k]) for k in ("mem_size", "width", "channels")}
+    weights = load_model_state(FIXTURE)
+    frames, centers = synthetic_video(n_frames, box, h=size, w=size)
+    videos = [(frames[0], np.array(centers[0], float),
+               np.array([box, box], float))] * batch
+    stack = np.stack([np.stack(frames[1:])] * batch)
+    n_valid = np.array([20, 20, 13, 7])[:batch]
+    p = _tracker_config("small")
+    rec = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = build_usot(fused_xcorr=True, dtype=dtype, **kw)
+        runner = ModelRunner(model, weights, device=device)
+        out = {}
+        for mesh in (None, make_mesh(devices=[device, device])):
+            eng = BatchScanEngine(model, p, size, size, batch, max_frames=8,
+                                  chunk=8, device=device, mesh=mesh)
+            _, pos, sz, _ = eng.track_batch(eng.init_batch(videos, runner),
+                                            stack, n_valid)
+            out[mesh is not None] = (pos, sz)
+        gap = max(float(np.abs(out[True][i][lane, :n]
+                               - out[False][i][lane, :n]).max())
+                  for i in (0, 1) for lane, n in enumerate(n_valid))
+        name = str(dtype)[6:]
+        rec[f"sharded_vs_unsharded_px_{name}"] = gap
+        check(gap <= tol_px, f"fixture sharded vs unsharded {name}: {gap} "
+              f"px > {tol_px}")
+    print(json.dumps({"sharded_fixture": rec}), flush=True)
+    return rec
+
+
+def _dp_job(width, channels, batch, mem, world, seed=8):
+    """Phase 15b's cases: seeded random weights (`init_model`, seed 0)
+    and global batches of `batch x world` samples."""
+    from usot_tpu_torch.data.shards import _pack_sample
+    from usot_tpu_torch.models.usot import build_usot, init_model
+
+    kw = dict(mem_size=mem, width=width, channels=channels)
+    model = init_model(build_usot(**kw), torch.Generator().manual_seed(0),
+                       device="cpu")
+    state = {k: t.numpy() for k, t in model.state_dict().items()}
+    rng = np.random.default_rng(seed)
+
+    def global_batch(cycle):
+        packed = [_pack_sample(training_sample(rng, cycle, mem))
+                  for _ in range(batch * world)]
+        return {k: np.stack([q[k] for q in packed]) for k in packed[0]}
+
+    naive, cycle = global_batch(False), global_batch(True)
+    base = dict(kind="step", accum=1, sync_bn=True, dtype="float32",
+                timed=1)
+    cases = [dict(base, name="naive_frozen", cycle=False, unfix=False,
+                  batch=naive),
+             dict(base, name="cycle_frozen", cycle=True, unfix=False,
+                  batch=cycle),
+             dict(base, name="cycle_unfrozen", cycle=True, unfix=True,
+                  batch=cycle),
+             dict(base, name="cycle_frozen_accum2", cycle=True,
+                  unfix=False, accum=2, batch=cycle),
+             dict(base, name="cycle_frozen_bn_sync_off", cycle=True,
+                  unfix=False, sync_bn=False, batch=cycle, timed=0)]
+    return dict(model=kw, state=state, cases=cases, full=False)
+
+
+def _stat_gap(a, b):
+    return max(_gap(torch.from_numpy(a[k]), torch.from_numpy(b[k]))
+               for k in b)
+
+
+def run_data_parallel_training(device, width=64, channels=256, batch=12,
+                               mem=4, phase10=None, out_dir=None,
+                               loss_tol=1e-4, grad_tol=1e-3, stat_tol=1e-4):
+    """Phase 15b: two training ranks on `device` over gloo against one
+    process on it with the global batch. Returns (record, the kernel
+    launches the two ranks made, summed: training launches none)."""
+    import tempfile
+
+    from usot_tpu_torch.parallel.steps import one_process, run_ranks
+
+    job = _dp_job(width, channels, batch, mem, 2)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    ref_job = dict(job, cases=[dict(c, timed=0) for c in job["cases"]
+                               if c["sync_bn"]])  # one process: rank 0
+    ref = one_process(ref_job, device)
+    ref_s = time.perf_counter() - t0
+    ref_launches = launch_counts()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()  # the ranks need ~2 x 19 GB
+    t0, wall0 = time.perf_counter(), time.time()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        ranks = run_ranks(job, [device, device], "gloo", tmp)
+    ranks_s = time.perf_counter() - t0
+    for r in ranks:  # wall clocks of one host: from the launch
+        r["_seconds"]["start"] -= wall0
+        r["_seconds"]["end"] -= wall0
+    # each rank counts its own launches (it resets its counts first)
+    launches = {k: sum(r["_launches"][k] for r in ranks)
+                for k in ranks[0]["_launches"]}
+    rec = {"ranks": 2, "backend": "gloo", "devices": [str(device)] * 2,
+           "batch_per_rank": batch, "global_batch": 2 * batch,
+           "memory_frames": mem, "one_process_s": ref_s,
+           "ranks_s": ranks_s,
+           "rank_seconds": [r["_seconds"] for r in ranks],
+           "launches_ranks": launches, "launches_one_process": ref_launches,
+           "cases": {}}
+    for case in job["cases"]:
+        name = case["name"]
+        if not case["sync_bn"]:
+            continue
+        a, b = (r[name] for r in ranks)
+        check(a["digest"] == b["digest"], f"data parallel {name}: the "
+              "ranks' parameters, BN stats or gradients differ")
+        want = ref[name]
+        loss = max(abs(a["metrics"][k] - want["metrics"][k])
+                   / max(abs(want["metrics"][k]), 1e-12)
+                   for k in want["metrics"])
+        grads = max(_gap(torch.from_numpy(a["grads"][n]),
+                         torch.from_numpy(want["grads"][n]))
+                    for n in want["grads"])
+        stats = max(_stat_gap(r[name]["stats"], want["stats"])
+                    for r in ranks)
+        r = {"loss_rel_err": loss, "grad_scaled_err": grads,
+             "bn_stat_scaled_err": stats,
+             "ms_per_step_rank": [x[name]["ms_per_step"] for x in ranks],
+             "peak_bytes_rank": [x[name]["peak_bytes"] for x in ranks],
+             "loss": a["metrics"]["loss"]}
+        if phase10 and name in phase10:
+            r["phase10_one_rank_b12"] = {k: phase10[name][k] for k in (
+                "ms_per_step", "peak_bytes")}
+        held = name != "cycle_unfrozen"
+        check(stats <= stat_tol and (not held or (
+            loss <= loss_tol and grads <= grad_tol)),
+              f"data parallel {name} against one process: {r}")
+        rec["cases"][name] = r
+    off = ranks[0]["cycle_frozen_bn_sync_off"]
+    gap = _stat_gap(off["stats"], ref["cycle_frozen"]["stats"])
+    check(gap > 10 * stat_tol, f"per-rank BN statistics came within "
+          f"{gap} of the global ones (bound {stat_tol})")
+    rec["bn_sync_off_stat_scaled_err"] = gap
+    print(json.dumps({"data_parallel_training": rec}), flush=True)
+    return rec, launches
+
+
+def run_nccl_and_dryrun(device, width=64, channels=256, batch=12, mem=4,
+                        out_dir=None):
+    """Phase 15c: `cli.train.train` with `--devices 1` in a NCCL group of
+    one for 2 steps, and `entry.dryrun_multichip(2)`. Returns the
+    record."""
+    import tempfile
+
+    from usot_tpu_torch.cli.train import train
+    from usot_tpu_torch.entry import dryrun_multichip
+
+    rec = {}
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        shards = os.path.join(tmp, "shards")
+        write_training_shards(shards, 1, 3, 2 * batch, mem)
+        cfg = training_config(os.path.join(tmp, "run"), width, channels,
+                              batch, mem)
+        t0 = time.perf_counter()
+        out = train(cfg, train_args(shards, devices=1, stop_after_epoch=1),
+                    device, backend=backend)
+        rec["train_s"] = time.perf_counter() - t0
+    losses = out["epochs"]["1"]["losses"]
+    check(out["world"] == 1 and len(losses) == 2
+          and all(np.isfinite(losses)),
+          f"{backend} at world size 1: {out['epochs']}")
+    rec.update(backend=backend, world=1, losses=losses)
+    t0 = time.perf_counter()
+    rec["dryrun_loss"] = dryrun_multichip(
+        2, None if device.type == "cuda" else device)
+    rec["dryrun_s"] = time.perf_counter() - t0
+    print(json.dumps({"nccl_and_dryrun": rec}), flush=True)
+    return rec
+
+
 # ------------------------------------------------------------------- main
 
 def ptxas_report(built):
@@ -3010,6 +3507,15 @@ def main() -> int:
     entry_rec, entry_k1 = run_entry(device)
     phase14_s = time.perf_counter() - t14
     print(f"phase 14: {phase14_s:.1f} s", flush=True)
+    # phase 15: data parallelism, one card standing in for two
+    t15 = time.perf_counter()
+    sharded_rec, sharded_k1 = run_sharded_engine(
+        build_model(device), device, batch_rec, bf16_rec, card=card)
+    dp_rec, dp_launches = run_data_parallel_training(
+        device, phase10=train_rec["steps"])
+    nccl_rec = run_nccl_and_dryrun(device)
+    phase15_s = time.perf_counter() - t15
+    print(f"phase 15: {phase15_s:.1f} s", flush=True)
 
     def pick(records, tag, shape):
         return next(r for r in records
@@ -3018,13 +3524,15 @@ def main() -> int:
     k1_paths = {"parity_slice": slice_k1, "batch_engine": batch_k1,
                 "scan_engine": scan_k1, "protocols": proto_k1,
                 "batch_engine_bf16": bf16_k1, "fixture_f32_bf16": fixture_k1,
-                "trax": trax_k1, "onekey": onekey_k1, "entry": entry_k1}
+                "trax": trax_k1, "onekey": onekey_k1, "entry": entry_k1,
+                "sharded": sharded_k1}
     k1_line = kernel_line("K1", pick(
         k1_records, "K1", "engine, instance 255, B=32, M=7, C=256, f32"),
         sum(k1_paths.values()), {**k1_paths, "tools": tool_counts["K1"],
                                  "training": train_launches["K1"],
                                  "training_bf16": bf16_train_launches["K1"],
-                                 "preprocessing": mining_launches["K1"]})
+                                 "preprocessing": mining_launches["K1"],
+                                 "data_parallel": dp_launches["K1"]})
     k1_bf16 = pick(k1_records, "K1",
                    "engine, instance 255, B=32, M=7, C=256, bf16")
     k1_line["bf16"] = {k: k1_bf16[k] for k in (
@@ -3039,14 +3547,16 @@ def main() -> int:
                         "tools": tool_counts["K2"],
                         "training": train_launches["K2"],
                         "training_bf16": bf16_train_launches["K2"],
-                        "preprocessing": mining_launches["K2"]}),
+                        "preprocessing": mining_launches["K2"],
+                        "data_parallel": dp_launches["K2"]}),
         kernel_line("K3", pick(single_records, "K3",
                                "B=32, 29x29 / 5x5, C=256, bf16"),
                     tool_counts["K3"], {
                         "tools": tool_counts["K3"],
                         "training": train_launches["K3"],
                         "training_bf16": bf16_train_launches["K3"],
-                        "preprocessing": mining_launches["K3"]}),
+                        "preprocessing": mining_launches["K3"],
+                        "data_parallel": dp_launches["K3"]}),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched")
@@ -3063,6 +3573,8 @@ def main() -> int:
                "pseudo_labels": mining_rec, "trax": trax_rec,
                "evaluate": eval_rec, "onekey": onekey_rec,
                "entry": entry_rec, "phase14_s": phase14_s,
+               "sharded_engine": sharded_rec, "data_parallel": dp_rec,
+               "nccl_and_dryrun": nccl_rec, "phase15_s": phase15_s,
                "seconds": time.perf_counter() - t_start}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

@@ -83,3 +83,22 @@ def test_trace_writes_a_chrome_trace(tmp_path):
         events = json.load(f)["traceEvents"]
     assert any("mm" in e.get("name", "") for e in events)
     assert os.path.getsize(tmp_path / "trace" / "trace.json") > 0
+
+
+def test_dryrun_multichip_gives_a_finite_loss(capfd):
+    """`dryrun_multichip(2, device="cpu")`: one data-parallel cycle-memory
+    step over two gloo ranks on the CPU, JAX's tiny geometry at full
+    width. Its loss is finite and equals the same step in one process on
+    the global batch within 1e-5 relative."""
+    loss = port_entry.dryrun_multichip(2, device="cpu")
+    assert np.isfinite(loss)
+    assert "dryrun_multichip(2): loss=" in capfd.readouterr().out
+    one = port_entry._dryrun_loss(2, torch.device("cpu"))
+    assert abs(loss - one) <= 1e-5 * abs(one), (loss, one)
+
+
+def test_dryrun_multichip_without_a_gpu_raises():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without CUDA")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_entry.dryrun_multichip(2)

@@ -48,7 +48,7 @@ def test_importing_every_module_loads_no_jax():
                  "preprocessing.correlation", "preprocessing.pwclite",
                  "preprocessing.flow2box", "preprocessing.inference",
                  "preprocessing.crop_gen", "cli.parse_flow",
-                 *SLICE_9_MODULES):
+                 *SLICE_9_MODULES, *SLICE_10_MODULES):
         assert "usot_tpu_torch." + name in loaded, name
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -59,6 +59,8 @@ SLICE_9_MODULES = ("eval.trax_protocol", "cli.vot_wrapper", "eval.region",
                    "eval.visualization", "cli.evaluate", "cli.test_epochs",
                    "cli.onekey", "tools.onekey_synthetic", "utils.profiling",
                    "entry")
+# data parallelism: the mesh, the process group, the step runs
+SLICE_10_MODULES = ("parallel", "parallel.mesh", "parallel.steps")
 
 
 def test_evaluation_and_pipeline_import_no_optional_library():
@@ -82,8 +84,9 @@ def test_evaluation_and_pipeline_import_no_optional_library():
 
 
 def test_training_imports_no_optional_library():
-    """The trainer and its modules, the flax-checkpoint reader, the
-    synthetic-data tools and the pseudo-label factory import PyYAML only
+    """The trainer and its modules (data parallelism too), the
+    flax-checkpoint reader, the synthetic-data tools and the pseudo-label
+    factory import PyYAML only
     when a config file is read, and neither OpenCV, Pillow, tensorboardX
     nor msgpack at module level (the GPU machine has none of them)."""
     script = textwrap.dedent("""
@@ -101,6 +104,8 @@ def test_training_imports_no_optional_library():
         import usot_tpu_torch.cli.make_shards
         import usot_tpu_torch.cli.parse_flow
         import usot_tpu_torch.preprocessing.flow2box
+        import usot_tpu_torch.parallel.mesh
+        import usot_tpu_torch.parallel.steps
         print(sorted(n for n in sys.modules if n.split(".")[0] in
                      ("yaml", "cv2", "PIL", "tensorboardX", "msgpack")))
     """)

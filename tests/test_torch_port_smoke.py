@@ -626,6 +626,109 @@ def test_onekey_runs_in_process_at_small_width(monkeypatch):
     assert all(np.isfinite(a) for a in rec["auc"].values())
 
 
+def test_sharded_engine_runs_at_small_width():
+    """Phase 15a at w8c32 on the CPU: two shards on one device against
+    the unsharded engine (the same device: every gap 0), the warm chunk,
+    the timed runs, the splice across the boundary and the fixture."""
+    model, _, _ = chip_smoke.run_slice(CPU, width=8, channels=32,
+                                       n_frames=2, n_iter=1)
+    kw = dict(batch=4, n_frames=17, chunk=8, repeats=1, h=320, w=320,
+              ragged_frames=5)
+    f32_rec, _ = chip_smoke.run_batch_engine(model, CPU, **kw)
+    bf16_rec, _ = chip_smoke.run_bf16_engine(model, CPU, f32_rec, **kw)
+    rec, launches = chip_smoke.run_sharded_engine(
+        model, CPU, f32_rec, bf16_rec, batch=4, n_frames=17, chunk=8,
+        forced=3, repeats=1, h=320, w=320)
+    assert launches == 0 and rec["shards"] == 2
+    for label in ("float32", "bfloat16"):
+        r = rec[label]
+        assert r["frame_steps"] == 16
+        gaps = r["teacher_forced_gap"]
+        assert all(gaps[k]["max"] == 0.0
+                   for k in ("pos", "sz", "score", "mem_conf"))
+        assert gaps.get("argmax_agrees_share", 1.0) == 1.0
+        splice = r["splice_across_boundary"]
+        assert splice["lanes"] == [1, 2] and splice["carry_equal"]
+        assert r["free_running_nonfinite_lanes"] == 0
+        assert r["unsharded"]["ms_per_step_median"] \
+            == (f32_rec if label == "float32"
+                else bf16_rec)["ms_per_step_median"]
+    assert rec["fixture"]["sharded_vs_unsharded_px_float32"] <= 2e-3
+    assert rec["fixture"]["sharded_vs_unsharded_px_bfloat16"] <= 2e-3
+    assert rec["bfloat16"]["teacher_forced_gap"]["score"]["held"]
+
+
+def test_sharded_engine_check_catches_a_wrong_shard(monkeypatch):
+    """The teacher-forced check fails a sharded engine whose second
+    shard tracks from a shifted carry."""
+    from usot_tpu_torch.tracker.engine import BatchScanEngine
+
+    model, _, _ = chip_smoke.run_slice(CPU, width=8, channels=32,
+                                       n_frames=2, n_iter=1)
+    plain_scatter = BatchScanEngine.scatter_state
+
+    def shifted(self, state):
+        out = plain_scatter(self, state)
+        last = out.shards[-1]
+        shards = out.shards[:-1] + (last._replace(pos=last.pos + 3.0),)
+        return type(out)(shards)
+
+    monkeypatch.setattr(BatchScanEngine, "scatter_state", shifted)
+    rec = {"ms_per_step_median": 1.0, "fps_median": 1.0,
+           "k1_launches_per_step": 0.0}
+    with pytest.raises(RuntimeError, match="sharded engine float32"):
+        chip_smoke.run_sharded_engine(model, CPU, rec, rec, batch=4,
+                                      n_frames=17, chunk=8, forced=2,
+                                      repeats=1, h=320, w=320)
+
+
+def test_sharded_engine_check_catches_wrong_bf16_scores(monkeypatch):
+    """The bf16 hold fails a sharded engine whose shards report scores
+    0.1 off in bf16 alone (the f32 pass and the argmax unchanged)."""
+    from usot_tpu_torch.tracker.engine import BatchScanEngine
+
+    model, _, _ = chip_smoke.run_slice(CPU, width=8, channels=32,
+                                       n_frames=2, n_iter=1)
+    plain_chunk = BatchScanEngine._chunk
+
+    def off(self, *args):
+        carry, (pos, sz, score) = plain_chunk(self, *args)
+        if self.dtype == torch.bfloat16 and self.batch == 2:  # a shard
+            score = score + 0.1
+        return carry, (pos, sz, score)
+
+    monkeypatch.setattr(BatchScanEngine, "_chunk", off)
+    rec = {"ms_per_step_median": 1.0, "fps_median": 1.0,
+           "k1_launches_per_step": 0.0}
+    with pytest.raises(RuntimeError, match="sharded engine bfloat16 .*"
+                                           "score"):
+        chip_smoke.run_sharded_engine(model, CPU, rec, rec, batch=4,
+                                      n_frames=17, chunk=8, forced=2,
+                                      repeats=1, h=320, w=320)
+
+
+def test_data_parallel_training_runs_at_small_width(tmp_path):
+    """Phase 15b at w8c32, B=2 per rank, 2 memory frames: two gloo ranks
+    on the CPU against one process with the global batch, every case
+    held, per-rank BN statistics far off; phase 15c: a gloo group of one
+    through the trainer, and the dry run."""
+    rec, launches = chip_smoke.run_data_parallel_training(
+        CPU, width=8, channels=32, batch=2, mem=2, out_dir=str(tmp_path))
+    assert launches == {"K1": 0, "K2": 0, "K3": 0}
+    assert rec["launches_ranks"] == launches
+    assert set(rec["cases"]) == {"naive_frozen", "cycle_frozen",
+                                 "cycle_unfrozen", "cycle_frozen_accum2"}
+    assert rec["global_batch"] == 4
+    assert rec["bn_sync_off_stat_scaled_err"] > 1e-3
+    assert all(len(r["ms_per_step_rank"]) == 2 and
+               r["ms_per_step_rank"][0] > 0 for r in rec["cases"].values())
+    rec = chip_smoke.run_nccl_and_dryrun(CPU, width=8, channels=32,
+                                         batch=2, mem=2,
+                                         out_dir=str(tmp_path))
+    assert rec["backend"] == "gloo" and len(rec["losses"]) == 2
+    assert np.isfinite(rec["dryrun_loss"])
+
+
 def test_entry_runs_on_the_cpu():
     rec, launches = chip_smoke.run_entry(CPU)
     assert launches == 0 and rec["shapes"][3] == [1, 31, 31, 256]

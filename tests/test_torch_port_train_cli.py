@@ -33,13 +33,13 @@ torch.set_num_threads(2)
 END_EPOCH, MEMORY_EPOCH, UNFIX_EPOCH = 6, 3, 5
 
 
-def _write_cfg(root, tag, crop_dir=None, ann_path=None):
+def _write_cfg(root, tag, crop_dir=None, ann_path=None, start_epoch=1):
     cfg = {"USOT": {
         "OUTPUT_DIR": str(root / tag / "log"),
         "CHECKPOINT_DIR": str(root / tag / "snapshot"),
         "WORKERS": 2, "PRINT_FREQ": 1,
         "TRAIN": {
-            "WIDTH": 8, "CHANNELS": 32, "START_EPOCH": 1,
+            "WIDTH": 8, "CHANNELS": 32, "START_EPOCH": start_epoch,
             "END_EPOCH": END_EPOCH, "BATCH": 2, "BATCH_STAGE_2": 2,
             "MEMORY_EPOCH": MEMORY_EPOCH, "UNFIX_EPOCH": UNFIX_EPOCH,
             "MEMORY_NUM": 2, "PRETRAIN": "init.pth",
@@ -245,17 +245,90 @@ def test_jax_reads_the_port_checkpoint(setup, runs):
         assert torch.equal(state["state_dict"][k], t), k
 
 
-def test_port_cli_refuses_what_it_does_not_run(setup, tmp_path):
-    """Several devices: refused before training starts (the live loader
-    and bfloat16, refused until the port had them, are
+def test_port_cli_refuses_what_it_does_not_run(setup, tmp_path,
+                                              monkeypatch):
+    """More cards than are visible: refused before training starts, on a
+    machine that shows one (`torch.cuda` patched). Several devices,
+    the live loader and bfloat16, refused until the port had them, are
+    `test_data_parallel_follows_jax_mesh_trainer`,
     `test_live_loader_follows_jax_and_the_shards` and
-    `test_bf16_live_run_follows_jax`)."""
+    `test_bf16_live_run_follows_jax`."""
     root, crop_dir, ann_path, shards = setup
     cfg = _write_cfg(tmp_path, "refused", crop_dir, ann_path)
-    with pytest.raises(SystemExit, match="one\\s+GPU"):
-        port_main(["--cfg", cfg, "--device", "cpu", "--shards", shards,
-                   "--devices", "2"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="--devices 2: 1 CUDA device"):
+        port_main(["--cfg", cfg, "--shards", shards, "--devices", "2"])
     assert not (tmp_path / "refused").exists()
+
+
+@pytest.fixture(scope="module")
+def dp_runs(setup):
+    """Data parallel from epoch 4 (cycle memory, frozen; unfrozen from 5)
+    on the shard set, global batch 2 x 2 (one step per epoch): JAX's
+    trainer over a 2-device mesh (`--devices 2`); the port's over two
+    gloo ranks on the CPU through `main` (`--device cpu --devices 2`),
+    stopped after epoch 5, and its resume from `checkpoint_e5.pth`
+    through `train(..., devices=["cpu", "cpu"], backend="gloo")`."""
+    from usot_tpu.cli.train import main as jax_main
+    from usot_tpu_torch.cli.train import parse_args, train
+    from usot_tpu_torch.config.defaults import load_config
+
+    root, crop_dir, ann_path, shards = setup
+    with pytest.MonkeyPatch.context() as mp:
+        mp.chdir(root)  # the ranks inherit it: pretrain/init.pth
+
+        def cfg(tag):
+            return _write_cfg(root, tag, crop_dir, ann_path, start_epoch=4)
+
+        jax_main(["--cfg", cfg("jax_dp"), "--devices", "2", "--shards",
+                  shards])
+        port_main(["--cfg", cfg("port_dp"), "--device", "cpu", "--devices",
+                   "2", "--shards", shards, "--stop-after-epoch", "5"])
+        resume = str(root / "port_dp" / "snapshot" / "checkpoint_e5.pth")
+        path = cfg("port_dp_resumed")
+        resumed = train(load_config(path), parse_args(
+            ["--cfg", path, "--device", "cpu", "--shards", shards,
+             "--resume", resume]), devices=["cpu", "cpu"], backend="gloo")
+    return {"resumed_returned": resumed,
+            **{tag: _record(root, tag)
+               for tag in ("jax_dp", "port_dp", "port_dp_resumed")}}
+
+
+def test_data_parallel_follows_jax_mesh_trainer(dp_runs):
+    """The port's 2-rank trainer against JAX's 2-device mesh trainer:
+    the schedule fields equal JAX's (global batch 4), the losses within
+    `test_losses_follow_jax`'s tolerances (1e-4 frozen, 1e-2 unfrozen)
+    in epochs 4 and 5, and the resumed epoch 6 within 1e-2 of JAX's
+    unbroken epoch 6."""
+    jax_rec = dp_runs["jax_dp"]["epochs"]
+    port = dict(dp_runs["port_dp"]["epochs"])
+    assert sorted(port) == ["4", "5"] and dp_runs["port_dp"]["world"] == 2
+    resumed = dp_runs["port_dp_resumed"]
+    assert resumed == dp_runs["resumed_returned"]
+    assert resumed["start_epoch"] == 6 and list(resumed["epochs"]) == ["6"]
+    port["6"] = resumed["epochs"]["6"]
+    for e in ("4", "5", "6"):
+        for k in ("lr", "cycle_memory", "unfix", "lambda_1", "cls_ratio",
+                  "batch", "n_iters"):
+            assert port[e][k] == jax_rec[e][k], (e, k)
+        assert port[e]["batch"] == 4 and port[e]["n_iters"] == 1
+        a, b = np.array(port[e]["losses"]), np.array(jax_rec[e]["losses"])
+        tol = 1e-4 if int(e) < UNFIX_EPOCH else 1e-2
+        assert np.all(np.abs(a - b) <= tol * np.abs(b)), (e, a, b)
+
+
+def test_data_parallel_writes_from_rank_0_only(setup, dp_runs):
+    """Rank 0 alone logs and writes the checkpoints and the record: one
+    log file per run, `checkpoint_e5.pth` from the stopped run and
+    `checkpoint_e6.pth` from the resumed one."""
+    root = setup[0]
+    for tag, ckpts in (("port_dp", ["checkpoint_e5.pth"]),
+                       ("port_dp_resumed", ["checkpoint_e6.pth"])):
+        assert sorted(os.listdir(root / tag / "snapshot")) == ckpts
+        logs = [f for f in os.listdir(root / tag / "log" / "USOT")
+                if f.endswith(".log")]
+        assert len(logs) == 1, logs
 
 
 @pytest.fixture(scope="module")

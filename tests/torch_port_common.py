@@ -111,13 +111,16 @@ def torch_layout(params, stats):
 
 
 def jax_train_run(variables, cycle, unfix, batches, accum=1, seen=None,
-                  x64=False, bf16=False):
+                  x64=False, bf16=False, mesh=None):
     """JAX steps of one phase over `batches` from `variables`. Per step:
     {"metrics", "params", "momentum"} in the port's state-dict layout
     ("params" with the BN stats; momentum: optax's trace). `seen`, a list,
     receives the cycle-memory `forward_res` of every step (the input of
     the argmax). x64: the model and its variables in float64; bf16: the
-    model computes in bfloat16 (`USOTNet.dtype`), its variables float32."""
+    model computes in bfloat16 (`USOTNet.dtype`), its variables float32.
+    mesh: n > 1 runs the step as JAX's trainer does over a `data` mesh of
+    n devices (`make_mesh(n_data=n)`: the state replicated, each batch
+    sharded)."""
     import jax
     import jax.numpy as jnp
     import pytest
@@ -150,7 +153,14 @@ def jax_train_run(variables, cycle, unfix, batches, accum=1, seen=None,
                 return argmax(x, axis=axis, **kwargs)
 
             mp.setattr(jax_usot.jnp, "argmax", recorded)
+        if mesh is not None:
+            from usot_tpu.parallel.mesh import (make_mesh, replicate_tree,
+                                                shard_batch)
+            mesh = make_mesh(n_data=mesh)
+            state = replicate_tree(mesh, state)
         for batch in batches:
+            if mesh is not None:
+                batch = shard_batch(mesh, batch)
             state, met = step(state, batch, jnp.float32(LR),
                               jnp.float32(CLS_RATIO))
             params = jax.tree.map(np.asarray, state.params)

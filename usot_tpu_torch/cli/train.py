@@ -3,7 +3,7 @@ scripts/train_usot.py).
 
     python -m usot_tpu_torch.cli.train --cfg experiments/train/USOT.yaml \
         [--shards <root>] [--workers N] [--dtype bfloat16] [--device cpu] \
-        [--resume checkpoint_eN.pth|.ckpt]
+        [--devices N] [--resume checkpoint_eN.pth|.ckpt]
 
 Epoch loop with the reference schedule: naive Siamese until MEMORY_EPOCH,
 cycle memory after; backbone layers 1-3 unfrozen at UNFIX_EPOCH (a new
@@ -20,16 +20,28 @@ epoch without `--shards`, trains from the live loader: `USOTDataset(cfg,
 seed=epoch)` through the threaded `DataLoader` with `cfg.WORKERS`
 threads (`--workers`), as JAX's trainer does. `--dtype bfloat16`
 computes in bf16 over float32 parameters, BN statistics and optimizer
-state. One device.
+state.
+
+Data parallel over `--devices N` ranks (default: every visible card; 1
+under `--device cpu`), as JAX's trainer shards its global batch over a
+1-D mesh: the global batch is BATCH x N (the LR unscaled), rank r holds
+its rows of it (`parallel.mesh.rank_rows`), and the step is the
+one-process step on the global batch (`train/step.py`). On the GPU the
+N ranks are spawned processes, rank r on `cuda:r`, over NCCL; under
+`--device cpu` they run on the CPU over gloo. Rank 0 alone logs and
+writes checkpoints and `train_record.json`; every rank reads
+`--resume`, and rank 0's parameters are broadcast after the load.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import logging
 import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from usot_tpu_torch.config.defaults import load_config
 from usot_tpu_torch.core.device import resolve_device
@@ -39,6 +51,9 @@ from usot_tpu_torch.data.shards import (ShardLoader, device_prefetch,
                                         epoch_dir, read_meta)
 from usot_tpu_torch.models.convert import load_pretrain
 from usot_tpu_torch.models.usot import build_usot, init_model
+from usot_tpu_torch.parallel.mesh import (broadcast_module, file_rendezvous,
+                                          is_main, launch, rank_rows,
+                                          world_size)
 from usot_tpu_torch.train.checkpoint import (peek_epoch, restore_checkpoint,
                                              save_model_epoch)
 from usot_tpu_torch.train.optim import build_optimizer
@@ -54,7 +69,8 @@ def parse_args(argv=None):
     parser.add_argument("--workers", type=int, default=None,
                         help="live-loader threads (cfg.WORKERS)")
     parser.add_argument("--devices", type=int, default=None,
-                        help="number of GPUs; only 1 is supported")
+                        help="data-parallel ranks (default: every visible "
+                        "GPU; 1 with --device cpu): global batch BATCH x N")
     parser.add_argument("--device", default=None,
                         help="torch device (default: the GPU; raises "
                         "without one). `cpu` runs on the CPU")
@@ -95,11 +111,12 @@ def main(argv=None):
 
 
 def epoch_loader(cfg, args, epoch: int, cycle_memory: bool,
-                 batch_size: int, reader=None):
+                 batch_size: int, reader=None, rows=None):
     """The epoch's batches: its shard set under `args.shards` where there
     is one, else the live loader over `USOTDataset(cfg, seed=epoch)`
-    (`reader`, if given, replaces the dataset's frame reader). Returns
-    (loader, a description for the log)."""
+    (`reader`, if given, replaces the dataset's frame reader). rows: a
+    rank's rows of each global batch of `batch_size` (None: all).
+    Returns (loader, a description for the log)."""
     if args.shards:
         sdir = epoch_dir(args.shards, epoch)
         smeta = read_meta(sdir)
@@ -109,23 +126,87 @@ def epoch_loader(cfg, args, epoch: int, cycle_memory: bool,
                     f"shard set {sdir} was built for cycle_memory="
                     f"{smeta['cycle_memory']}, epoch {epoch} needs "
                     f"{cycle_memory}")
-            return (ShardLoader(sdir, batch_size),
+            return (ShardLoader(sdir, batch_size, rows=rows),
                     f"{smeta['n_samples']} samples from {sdir}")
     dataset = USOTDataset(cfg, seed=epoch, reader=reader)
     dataset.cycle_memory = cycle_memory
-    return (DataLoader(dataset, batch_size, num_workers=cfg.WORKERS),
+    return (DataLoader(dataset, batch_size, num_workers=cfg.WORKERS,
+                       rows=rows),
             f"{len(dataset)} samples from the live loader, "
             f"{cfg.WORKERS} workers")
 
 
-def train(cfg, args, device=None, reader=None):
+def rank_devices(n, device, devices=None):
+    """The data-parallel ranks' devices: `devices` as given (n, if set,
+    must match), else n ranks (default: every visible card; 1 on the
+    CPU): on the CPU all on `device`, on the GPU rank r on `cuda:r`, or
+    `device` itself for one rank. Raises when n exceeds the visible
+    cards."""
+    if devices is not None:
+        devices = [torch.device(d) for d in devices]
+        if n not in (None, len(devices)):
+            raise ValueError(f"--devices {n} for {len(devices)} devices")
+        return devices
+    if n is not None and n < 1:
+        raise ValueError(f"--devices {n}")
+    if device.type != "cuda":
+        return [device] * (n or 1)
+    visible = torch.cuda.device_count()
+    n = n or visible
+    if n > visible:
+        raise ValueError(f"--devices {n}: {visible} CUDA device(s) visible")
+    return [device] if n == 1 else [torch.device("cuda", i)
+                                    for i in range(n)]
+
+
+def train(cfg, args, device=None, reader=None, backend=None, devices=None):
     """Run the schedule of `cfg.USOT.TRAIN` with the options of `args`
     (`parse_args`'s namespace) on `device` (default: `args.device`, else
     the GPU). `reader` replaces the live loader's frame reader (frames
-    held in memory). Returns the per-epoch record also written to
-    `OUTPUT_DIR/train_record.json`."""
-    tc = cfg.USOT.TRAIN
+    held in memory; with more than one rank it must pickle). Returns the
+    per-epoch record also written to `OUTPUT_DIR/train_record.json`.
+
+    Data parallel: one rank per entry of `rank_devices(args.devices,
+    device, devices)`; `devices` (a list, which may repeat a card) and
+    `backend` are arguments for callers that place ranks themselves,
+    e.g. two gloo ranks on one card. backend: default NCCL when every
+    rank has a card of its own, else gloo. One rank with no backend runs
+    in this process without a process group; with a backend (NCCL at
+    world size 1) it joins a group of one. The group meets at a
+    `file://` rendezvous under OUTPUT_DIR."""
     device = resolve_device(device if device is not None else args.device)
+    devices = rank_devices(args.devices, device, devices)
+    if len(devices) == 1 and backend is None:
+        return _train(cfg, args, devices[0], reader)
+    if backend is None:
+        distinct = len(set(devices)) == len(devices)
+        backend = "nccl" if distinct and all(
+            d.type == "cuda" for d in devices) else "gloo"
+    launch(_train_rank, devices, backend, file_rendezvous(cfg.OUTPUT_DIR),
+           args=(cfg, args, reader))
+    with open(os.path.join(cfg.OUTPUT_DIR, "train_record.json")) as f:
+        return json.load(f)
+
+
+def _train_rank(rank, world, group, device, cfg, args, reader):
+    _train(cfg, args, device, reader, group)
+
+
+def _quiet_logger(rank: int):
+    logger = logging.getLogger(f"usot_tpu_torch.train.rank{rank}")
+    logger.propagate = False
+    if not logger.handlers:
+        logger.addHandler(logging.NullHandler())
+    return logger
+
+
+def _train(cfg, args, device, reader, group=None):
+    """The schedule in this process: alone (group None) or as one rank of
+    `group`."""
+    tc = cfg.USOT.TRAIN
+    rank = 0 if group is None else dist.get_rank(group)
+    world = world_size(group)
+    main_rank = is_main()
     resume_path = args.resume or (
         tc.RESUME if isinstance(tc.RESUME, str) else None)
     if resume_path and not os.path.exists(resume_path):
@@ -134,21 +215,22 @@ def train(cfg, args, device=None, reader=None):
     if resume_path:
         ckpt_epoch = peek_epoch(resume_path)
         start_epoch = ckpt_epoch + 1
-    if args.devices not in (None, 1):
-        raise SystemExit(f"--devices {args.devices}: the port trains on one "
-                         "GPU (no data parallel yet)")
     if device.type == "cuda":
         # parity with the f32 reference: cuDNN defaults to TF32
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
 
-    logger, log_dir = create_logger(cfg.OUTPUT_DIR, "USOT", "train")
-    logger.info("config: %s", cfg)
-    try:
-        from tensorboardX import SummaryWriter
-        writer = SummaryWriter(log_dir=os.path.join(log_dir, "tb"))
-    except ImportError:  # optional, as in the JAX CLI
-        writer = None
+    writer = None
+    if main_rank:
+        logger, log_dir = create_logger(cfg.OUTPUT_DIR, "USOT", "train")
+        logger.info("config: %s", cfg)
+        try:
+            from tensorboardX import SummaryWriter
+            writer = SummaryWriter(log_dir=os.path.join(log_dir, "tb"))
+        except ImportError:  # optional, as in the JAX CLI
+            pass
+    else:
+        logger = _quiet_logger(rank)
 
     model = build_usot(mem_size=tc.MEMORY_NUM, width=tc.WIDTH,
                        channels=tc.CHANNELS,
@@ -161,7 +243,8 @@ def train(cfg, args, device=None, reader=None):
     else:
         logger.warning("pretrain %s not found; training from scratch",
                        pretrain_path)
-    logger.info("device: %s, compute dtype %s", device, args.dtype)
+    logger.info("device: %s, compute dtype %s, %d rank(s)", device,
+                args.dtype, world)
 
     lr_spaces = build_lr_spaces(tc, tc.END_EPOCH)
 
@@ -178,12 +261,14 @@ def train(cfg, args, device=None, reader=None):
         logger.info("resumed from %s at epoch %d", resume_path, start_epoch)
     else:
         optimizer = build(start_epoch)
+    if group is not None:
+        broadcast_module(model, group)
 
     # per-epoch record (losses, schedule state, timing), rewritten after
     # every epoch so a killed run leaves a usable partial record
     record = {"resumed_from": resume_path, "start_epoch": int(start_epoch),
               "end_epoch": int(tc.END_EPOCH), "device": str(device),
-              "dtype": args.dtype, "epochs": {}}
+              "dtype": args.dtype, "world": world, "epochs": {}}
     record_path = os.path.join(cfg.OUTPUT_DIR, "train_record.json")
     os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
 
@@ -200,11 +285,13 @@ def train(cfg, args, device=None, reader=None):
             model, optimizer, cycle_memory=cycle_memory,
             stage_bn_train=unfix, lambda_1=lambda_1,
             lambda_total=lambda_total, lambda_1_naive=tc.LAMBDA_1_NAIVE,
-            remat=args.remat, accum_steps=args.accum)
+            remat=args.remat, accum_steps=args.accum, group=group)
 
-        batch_size = tc.BATCH_STAGE_2 if cycle_memory else tc.BATCH
+        batch_size = (tc.BATCH_STAGE_2 if cycle_memory else tc.BATCH) * world
+        rows = None if group is None else rank_rows(batch_size, rank, world,
+                                                    args.accum)
         loader, source = epoch_loader(cfg, args, epoch, cycle_memory,
-                                      batch_size, reader)
+                                      batch_size, reader, rows)
         lr = float(lr_spaces[epoch - 1])
         logger.info("epoch %d lr %.6f cycle_memory=%s batch=%d (%s)",
                     epoch, lr, cycle_memory, batch_size, source)
@@ -235,21 +322,23 @@ def train(cfg, args, device=None, reader=None):
                 print_speed(global_step, batch_time.avg,
                             tc.END_EPOCH * len(loader), logger)
 
-        path = save_model_epoch(cfg.CHECKPOINT_DIR, model, optimizer, epoch)
-        if path:
-            logger.info("saved %s", path)
+        if main_rank:
+            path = save_model_epoch(cfg.CHECKPOINT_DIR, model, optimizer,
+                                    epoch)
+            if path:
+                logger.info("saved %s", path)
 
-        record["epochs"][str(epoch)] = {
-            "lr": lr, "cycle_memory": bool(cycle_memory),
-            "unfix": bool(unfix),
-            "lambda_1": float(lambda_1), "cls_ratio": float(cls_ratio),
-            "batch": int(batch_size), "n_iters": len(iter_losses),
-            "loss_avg": round(losses.avg, 6), "losses": iter_losses,
-            "seconds": round(time.time() - epoch_t0, 3),
-            "checkpoint": path,
-        }
-        with open(record_path, "w") as f:
-            json.dump(record, f, indent=1)
+            record["epochs"][str(epoch)] = {
+                "lr": lr, "cycle_memory": bool(cycle_memory),
+                "unfix": bool(unfix),
+                "lambda_1": float(lambda_1), "cls_ratio": float(cls_ratio),
+                "batch": int(batch_size), "n_iters": len(iter_losses),
+                "loss_avg": round(losses.avg, 6), "losses": iter_losses,
+                "seconds": round(time.time() - epoch_t0, 3),
+                "checkpoint": path,
+            }
+            with open(record_path, "w") as f:
+                json.dump(record, f, indent=1)
 
         if args.stop_after_epoch is not None and \
                 epoch >= args.stop_after_epoch:

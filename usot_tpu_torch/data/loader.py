@@ -38,14 +38,20 @@ class DataLoader:
     threads, up to `prefetch` batches ahead of the consumer. Each item
     derives its own generator from its index (`USOTDataset`), so the
     batches are the same whatever `num_workers` is. An item that raises
-    raises in the consumer."""
+    raises in the consumer.
+
+    rows: a data-parallel rank's rows of each global batch of
+    `batch_size` (`parallel.mesh.rank_rows`), in that order; only those
+    items are assembled. None: every row."""
 
     def __init__(self, dataset, batch_size: int, num_workers: int = 4,
-                 prefetch: int = 2):
+                 prefetch: int = 2, rows=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_workers = max(1, num_workers)
         self.prefetch = prefetch
+        self.rows = np.arange(batch_size) if rows is None \
+            else np.asarray(rows)
 
     def __len__(self):
         return len(self.dataset) // self.batch_size
@@ -69,8 +75,7 @@ class DataLoader:
                 for b in range(len(self)):
                     if stop.is_set():
                         return
-                    idx = range(b * self.batch_size,
-                                (b + 1) * self.batch_size)
+                    idx = (b * self.batch_size + self.rows).tolist()
                     samples = list(pool.map(self.dataset.__getitem__, idx))
                     if not self._put_or_stop(q, collate(samples), stop):
                         return

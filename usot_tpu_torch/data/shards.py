@@ -145,14 +145,25 @@ class ShardLoader:
 
     Per-step host work is a slice + (for partial shard tails) a
     concatenate — no decode, no augmentation. A background thread reads
-    the next shard from disk while the current one feeds the chip."""
+    the next shard from disk while the current one feeds the chip.
+
+    rows: a data-parallel rank's rows of each global batch of
+    `batch_size` (`parallel.mesh.rank_rows`), in that order; the rank
+    keeps and uploads only those (the reader thread still loads whole
+    shards: an npz member has no partial read). None: every row. Given
+    rows need drop_last."""
 
     def __init__(self, shard_dir: str, batch_size: int,
-                 drop_last: bool = True, prefetch: int = 2):
+                 drop_last: bool = True, prefetch: int = 2, rows=None):
+        if rows is not None and not drop_last:
+            raise ValueError("a rank's rows need whole global batches "
+                             "(drop_last=True)")
         self.shard_dir = shard_dir
         self.batch_size = batch_size
         self.drop_last = drop_last
         self.prefetch = prefetch
+        self.rows = np.arange(batch_size) if rows is None \
+            else np.asarray(rows)
         self.meta = read_meta(shard_dir)
         if self.meta is None:
             raise FileNotFoundError(f"no meta.json in {shard_dir}")
@@ -220,8 +231,7 @@ class ShardLoader:
                 n = len(next(iter(shard.values())))
                 full = n - n % self.batch_size
                 for s in range(0, full, self.batch_size):
-                    yield {k: v[s:s + self.batch_size]
-                           for k, v in shard.items()}
+                    yield {k: v[s + self.rows] for k, v in shard.items()}
                 if full < n:
                     tail = {k: v[full:] for k, v in shard.items()}
             if tail is not None and not self.drop_last:

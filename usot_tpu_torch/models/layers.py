@@ -22,6 +22,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from usot_tpu_torch.parallel.mesh import all_reduce_sum
+
 
 def compute_dtype(dtype: torch.dtype, like: torch.Tensor) -> torch.dtype:
     """The dtype a model computes in: `dtype` (given at `build_usot`)
@@ -117,7 +119,17 @@ class BatchNorm(nn.BatchNorm2d):
     no derivative, and no training phase needs one: the eval-mode BNs
     of the trainer's phases (the stem, and the stages while frozen) lie
     downstream of no trainable parameter. Train mode computes its
-    float32 statistics and output the same way."""
+    float32 statistics and output the same way.
+
+    `group`: a process group (set by the data-parallel training step,
+    `train/step.set_bn_group`), or None. With one, train mode sums the
+    per-channel sum(x), sum(x^2) and count over the group
+    (`parallel.mesh.all_reduce_sum`, which carries the gradient) and
+    takes mean and variance from the global sums: the statistics of the
+    global batch, as BatchNorm under JAX's mesh computes them, and the
+    same running stats on every rank."""
+
+    group = None
 
     def __init__(self, channels: int):
         super().__init__(channels, eps=1e-5, momentum=0.1)
@@ -137,9 +149,16 @@ class BatchNorm(nn.BatchNorm2d):
                                           self.running_mean, invstd,
                                           self.eps)
         xf = x if x.dtype == torch.float64 else x.float()  # >= f32 stats
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp(xf.square().mean(dim=(0, 2, 3)) - mean.square(),
-                          min=0.0)
+        if self.group is None:
+            mean = xf.mean(dim=(0, 2, 3))
+            mean_sq = xf.square().mean(dim=(0, 2, 3))
+        else:
+            sums = torch.stack([
+                xf.sum(dim=(0, 2, 3)), xf.square().sum(dim=(0, 2, 3)),
+                xf.new_full((xf.shape[1],), xf.numel() // xf.shape[1])])
+            sums = all_reduce_sum(sums, self.group)
+            mean, mean_sq = sums[0] / sums[2], sums[1] / sums[2]
+        var = torch.clamp(mean_sq - mean.square(), min=0.0)
         with torch.no_grad():
             self.running_mean.mul_(0.9).add_(mean, alpha=0.1)
             self.running_var.mul_(0.9).add_(var, alpha=0.1)

@@ -28,7 +28,6 @@ from usot_tpu_torch.train.losses import iou_loss, weighted_bce
 
 
 STRIDE = 8  # backbone output stride
-SEARCH_SIZE, SF_SIZE = 255, 25  # training's search crop and feature map
 
 
 def pred_offset_to_image_bbox(bbox_pred, search_size: int, score_size: int,
@@ -67,13 +66,17 @@ class USOTNet(nn.Module):
     torch.bfloat16 runs the network in bfloat16 over float32 parameters
     and BN statistics (see `models/layers.py`). Inputs may come in any
     float dtype: the stem and PrRoIPool cast them; outputs come in the
-    compute dtype."""
+    compute dtype. `search_size` and `sf_size`: training's search crop
+    and its feature map (255 and 25; flax's fields of the same names),
+    which the cycle-memory branch maps boxes between."""
 
     def __init__(self, mem_size: int = 4, fused_xcorr: bool = False,
                  width: int = 64, channels: int = 256,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, search_size: int = 255,
+                 sf_size: int = 25):
         super().__init__()
         self.mem_size = mem_size  # training's memory frames; not read here
+        self.search_size, self.sf_size = search_size, sf_size
         self.features = ResNet50(width, dtype)
         self.neck = AdjustLayer(16 * width, channels)
         self.connect_model = BoxTowerReg(channels, 4, fused_xcorr)
@@ -212,7 +215,7 @@ class USOTNet(nn.Module):
     def forward_train(self, template, search, label, reg_target, reg_weight,
                       template_bbox, search_memory=None, search_bbox=None,
                       cls_ratio=0.4, stage_bn_train: bool = False,
-                      remat: bool = False):
+                      remat: bool = False, group=None):
         """Returns (cls_loss_ori, cls_loss_memory | None, reg_loss).
 
         template: (B, 127, 127, 3); search: (B, 255, 255, 3);
@@ -229,7 +232,9 @@ class USOTNet(nn.Module):
         memory frames get their own backbone call, never one concatenated
         with the search images, whose batch statistics would differ.
         remat: the backbone's bottlenecks are recomputed in backward (see
-        `ResNetPlus2.forward`); the values are the same."""
+        `ResNetPlus2.forward`); the values are the same. group: the
+        data-parallel process group the losses' masked means count over
+        (`train/losses.py`); the BNs take theirs from `BatchNorm.group`."""
         if self.connect_model.fused_xcorr:
             raise ValueError("forward_train needs fused_xcorr=False: the "
                              "GroupDW kernel has no backward")
@@ -244,8 +249,8 @@ class USOTNet(nn.Module):
         xf = self.neck(xf_raw, bn_train=bn, crop=False)
 
         bbox_pred, cls_pred, cls_x, _ = head.offline(xf, zf, bn_train=bn)
-        reg_loss = iou_loss(bbox_pred, reg_target, reg_weight)
-        cls_loss_ori = weighted_bce(cls_pred, label)
+        reg_loss = iou_loss(bbox_pred, reg_target, reg_weight, group)
+        cls_loss_ori = weighted_bce(cls_pred, label, group)
         if search_memory is None:
             return cls_loss_ori, None, reg_loss
 
@@ -278,18 +283,19 @@ class USOTNet(nn.Module):
                        * mem_cls.reshape(b, m, s * s).float())
         best_idx = torch.argmax(forward_res, dim=2)  # (B, M), first max
 
-        img_bbox = pred_offset_to_image_bbox(off_bbox, SEARCH_SIZE, s)
+        img_bbox = pred_offset_to_image_bbox(off_bbox, self.search_size, s)
         img_bbox = img_bbox.reshape(b, m, s * s, 4)
         best_bbox = torch.gather(
             img_bbox, 2, best_idx[:, :, None, None].expand(b, m, 1, 4))
         pool_bbox = image_bbox_to_prpool_bbox(
-            best_bbox.reshape(b * m, 4), SEARCH_SIZE, SF_SIZE).detach()
+            best_bbox.reshape(b * m, 4), self.search_size,
+            self.sf_size).detach()
 
         pooled_mem = prroi_pool_same_batch(xf_mem, pool_bbox, pooled=7)
         # backward-track to the template frame's search area
         backward_res = head.memory_cls(cls_x, pooled_mem, mem_size=m,
                                        bn_train=bn)
-        cls_loss_mem = weighted_bce(backward_res, label)
+        cls_loss_mem = weighted_bce(backward_res, label, group)
         return cls_loss_ori, cls_loss_mem, reg_loss
 
 

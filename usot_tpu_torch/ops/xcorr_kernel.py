@@ -176,11 +176,14 @@ def _launch(name: str, dtype, pointers, dims, device):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
-def _count(wrapper, dtype):
-    """One launch of `wrapper`'s kernel on inputs of `dtype`."""
+def _count(wrapper, dtype, batch: int):
+    """One launch of `wrapper`'s kernel on inputs of `dtype` and leading
+    (lane) dim `batch`."""
     wrapper.launches += 1
     key = str(dtype).replace("torch.", "")
     wrapper.launches_by_dtype[key] = wrapper.launches_by_dtype.get(key, 0) + 1
+    wrapper.launches_by_batch[batch] = \
+        wrapper.launches_by_batch.get(batch, 0) + 1
 
 
 def _check_groupdw(xs, ks):
@@ -215,7 +218,7 @@ def xcorr_groupdw_cuda(xs, ks):
         dims += [x.shape[1], x.shape[2], k.shape[2], k.shape[3]]
     _launch("usot_xcorr_groupdw", xs[0].dtype,
             [t.data_ptr() for t in (*xs, *ks, out)], dims, xs[0].device)
-    _count(xcorr_groupdw_cuda, xs[0].dtype)
+    _count(xcorr_groupdw_cuda, xs[0].dtype, b)
     return out
 
 
@@ -251,7 +254,7 @@ def xcorr_depthwise_multi_cuda(x, kernel):
     _launch("usot_xcorr_depthwise_multi", x.dtype,
             [x.data_ptr(), kernel.data_ptr(), out.data_ptr()], dims,
             x.device)
-    _count(xcorr_depthwise_multi_cuda, x.dtype)
+    _count(xcorr_depthwise_multi_cuda, x.dtype, b)
     return out
 
 
@@ -266,7 +269,7 @@ def xcorr_depthwise_pairwise_cuda(x, kernel):
     _launch("usot_xcorr_depthwise", x.dtype,
             [x.data_ptr(), kernel.data_ptr(), out.data_ptr()], dims,
             x.device)
-    _count(xcorr_depthwise_pairwise_cuda, x.dtype)
+    _count(xcorr_depthwise_pairwise_cuda, x.dtype, b)
     return out
 
 
@@ -284,10 +287,16 @@ def launch_dtypes() -> dict:
     return {tag: dict(fn.launches_by_dtype) for tag, fn in _WRAPPERS.items()}
 
 
+def launch_batches() -> dict:
+    """{"K1": {lanes: n, ...}, ...}: the launches by leading dim."""
+    return {tag: dict(fn.launches_by_batch) for tag, fn in _WRAPPERS.items()}
+
+
 def reset_launch_counts():
     for fn in _WRAPPERS.values():
         fn.launches = 0
         fn.launches_by_dtype = {}
+        fn.launches_by_batch = {}
 
 
 reset_launch_counts()

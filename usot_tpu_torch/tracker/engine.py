@@ -22,15 +22,16 @@ small bookkeeping fields are new tensors every frame, so
 `BatchScanEngine` also carries the lane surgery the benchmark protocols
 of `tracker/lockstep.py` stand on (`run_chunk(donate=False)`,
 `make_lane_state(s)`, `splice_lane(s)`) and ROI streaming with its
-exactness replay (`track_batch_roi`; `engine.py:898-1443`).
+exactness replay (`track_batch_roi`; `engine.py:898-1443`), and shards
+its lanes over a device mesh (`mesh=`, `engine.py:628-666`).
 
 The network runs in the model's compute dtype (`USOTNet.dtype`,
 float32 or bfloat16); the template, the init anchors and the memory
 rings are carried in it; positions, sizes, confidences and the
 postprocess stay float32 (`engine.py:340-365`).
 
-Not carried over: `impl="vmap"`, `unroll`, `mesh` and `carry_dtype` (no
-caller passes a carry dtype other than the compute dtype).
+Not carried over: `impl="vmap"`, `unroll` and `carry_dtype` (no caller
+passes a carry dtype other than the compute dtype).
 """
 from __future__ import annotations
 
@@ -45,6 +46,7 @@ from usot_tpu_torch.core.geometry import (feature_axis, python2round,
                                           score_grid)
 from usot_tpu_torch.models.head import fold_inference_head
 from usot_tpu_torch.models.usot import USOTNet
+from usot_tpu_torch.parallel.mesh import replicate_tree, shard_batch
 from usot_tpu_torch.tracker.config import TrackerConfig
 from usot_tpu_torch.tracker.postprocess import hanning_window
 from usot_tpu_torch.tracker.tracker import _clip_number, _flip_lr
@@ -64,6 +66,30 @@ class EngineState(NamedTuple):
     mem_conf: Any     # (MAX,) f32
     mem_idx: Any      # (MAX,) int32 logical frame index per slot (-1 empty)
     mem_len: Any      # () int32 LOGICAL history length (grows unbounded)
+
+
+class MeshState(NamedTuple):
+    """The carry of a `BatchScanEngine` with a mesh: one `EngineState` per
+    shard, each over its contiguous block of lanes, on its device. `pos`
+    and `sz` read the global (B, 2) on the first shard's device
+    (`BatchScanEngine.gather_state` gives the whole carry)."""
+    shards: tuple
+
+    @property
+    def pos(self):
+        return _cat([s.pos for s in self.shards])
+
+    @property
+    def sz(self):
+        return _cat([s.sz for s in self.shards])
+
+
+def _cat(parts):
+    """Concatenate lane blocks (tensors, or equal trees of tuples of
+    them) along dim 0, on the first block's device."""
+    if isinstance(parts[0], tuple):
+        return tuple(_cat(list(z)) for z in zip(*parts))
+    return torch.cat([t.to(parts[0].device) for t in parts])
 
 
 # ------------------------------------------------------------ ring logic
@@ -210,15 +236,10 @@ def make_consts(p: TrackerConfig, device=None) -> dict:
     )
 
 
-def _postprocess_traced(p, c, pos, sz, scale_z, cls, bbox, cls_mem):
-    """On-device postprocess of a batch of videos, in f32: penalties,
-    cosine window, argmax, size EMA, pool bbox (counterpart of
-    `usot_tpu/tracker/engine.py:260-332`, which JAX vmaps over videos).
-
-    pos, sz: (B, 2); scale_z: (B,); cls/bbox/cls_mem: (B, S, S, {1,4,1})
-    raw head outputs; c: `make_consts`. Returns (new_pos (B, 2),
-    new_sz (B, 2), best_score (B,), pool_bbox (B, 4))."""
-    b = pos.shape[0]
+def _penalized_scores(p, c, sz, scale_z, cls, bbox, cls_mem):
+    """The score map `_postprocess_traced` takes its argmax of, in f32:
+    (pscore (B, S, S), cls_score, penalty, (pred_x1, pred_y1, pred_x2,
+    pred_y2)), the last four (B, S, S) too."""
     cls = cls.to(torch.float32)
     bbox = bbox.to(torch.float32)
     cls_mem = cls_mem.to(torch.float32)
@@ -250,6 +271,26 @@ def _postprocess_traced(p, c, pos, sz, scale_z, cls, bbox, cls_mem):
         + c["window"] * p.window_influence
     # Degenerate-prediction guard (see postprocess.py): NaN cells lose
     pscore = torch.where(torch.isnan(pscore), float("-inf"), pscore)
+    return pscore, cls_score, penalty, (pred_x1, pred_y1, pred_x2, pred_y2)
+
+
+def best_cells(p, c, sz, scale_z, cls, bbox, cls_mem):
+    """(B,) the flat score-map cell each lane's step picks."""
+    pscore = _penalized_scores(p, c, sz, scale_z, cls, bbox, cls_mem)[0]
+    return pscore.reshape(pscore.shape[0], -1).argmax(dim=1)
+
+
+def _postprocess_traced(p, c, pos, sz, scale_z, cls, bbox, cls_mem):
+    """On-device postprocess of a batch of videos, in f32: penalties,
+    cosine window, argmax, size EMA, pool bbox (counterpart of
+    `usot_tpu/tracker/engine.py:260-332`, which JAX vmaps over videos).
+
+    pos, sz: (B, 2); scale_z: (B,); cls/bbox/cls_mem: (B, S, S, {1,4,1})
+    raw head outputs; c: `make_consts`. Returns (new_pos (B, 2),
+    new_sz (B, 2), best_score (B,), pool_bbox (B, 4))."""
+    b = pos.shape[0]
+    pscore, cls_score, penalty, (pred_x1, pred_y1, pred_x2, pred_y2) = \
+        _penalized_scores(p, c, sz, scale_z, cls, bbox, cls_mem)
     best = pscore.reshape(b, -1).argmax(dim=1, keepdim=True)   # (B, 1)
 
     def at(t):
@@ -574,16 +615,68 @@ class BatchScanEngine(ScanEngine):
     """Tracks B videos in lockstep on one (canvas_h, canvas_w) uint8
     canvas; each lane's true (h, w) rides in `_im_hw_b` for crop validity
     and clamping. The step is `_frame_step_batched`: the network sees real
-    (B, ...) batches (JAX's `impl="native"`)."""
+    (B, ...) batches (JAX's `impl="native"`).
+
+    mesh: a `parallel.mesh.Mesh` of n devices (None, or n = 1: one
+    device). Tracking is data-parallel over videos with no collective, as
+    under JAX's mesh: the B lanes split into n contiguous blocks of B/n,
+    each tracked by an engine of its own (`_shards`) on its device with
+    that device's model replica (`replicate_tree`; devices that repeat
+    share one). `batch % n` must be 0. The carry is a `MeshState`; every
+    public method takes and returns global tensors in lane order on
+    `device` (the mesh's first): a chunk's frames and validity are split
+    per shard, every shard's chunk is dispatched before any is waited on,
+    and the outputs are gathered on `device` with no host sync. The
+    template init runs once for all lanes on `device`, as JAX runs it on
+    the runner, and is then split; ROI decisions stay one over all
+    lanes."""
 
     def __init__(self, model: USOTNet, p: TrackerConfig, canvas_h: int,
                  canvas_w: int, batch: int, max_frames: int = 2048,
-                 chunk: int = 32, fused_head: bool = False, device=None):
+                 chunk: int = 32, fused_head: bool = False, device=None,
+                 mesh=None):
         self.batch = batch
+        if mesh is not None:
+            if batch % mesh.size:
+                raise ValueError(f"batch {batch} does not divide by the "
+                                 f"mesh's {mesh.size} devices")
+            device = mesh.devices[0]
         super().__init__(model, p, im_h=canvas_h, im_w=canvas_w,
                          max_frames=max_frames, chunk=chunk,
                          fused_head=fused_head, device=device)
         self._origin0 = torch.zeros((batch, 2), device=self.device)
+        self.mesh = mesh
+        self._shards = None
+        if mesh is not None and mesh.size > 1:
+            per = batch // mesh.size
+            self._lanes = [(i * per, (i + 1) * per)
+                           for i in range(mesh.size)]
+            self._shards = [
+                BatchScanEngine(replica, p, canvas_h, canvas_w, per,
+                                max_frames=max_frames, chunk=chunk,
+                                fused_head=fused_head, device=d)
+                for replica, d in zip(replicate_tree(mesh, self.model),
+                                      mesh.devices)]
+
+    # ---- the mesh: global carry <-> per-shard carries ----
+
+    def scatter_state(self, state: EngineState) -> MeshState:
+        """A global carry (B lanes) as this engine's per-shard carry, each
+        block on its shard's device (a view where it already is there;
+        `shard_batch`). Sets each shard's avg and image-size rows from
+        the engine's."""
+        rows = shard_batch(self.mesh, (self._avg_b, self._im_hw_b))
+        for sh, (avg, im_hw) in zip(self._shards, rows):
+            sh._avg_b, sh._im_hw_b = avg, im_hw
+        return MeshState(tuple(EngineState(*block) for block in
+                               shard_batch(self.mesh, tuple(state))))
+
+    def gather_state(self, state):
+        """The global carry (an `EngineState` of B lanes on `device`) of a
+        `MeshState`; an `EngineState` is returned as it is."""
+        if not isinstance(state, MeshState):
+            return state
+        return EngineState(*_cat([tuple(s) for s in state.shards]))
 
     @torch.inference_mode()
     def init_batch(self, videos, runner) -> EngineState:
@@ -627,7 +720,7 @@ class BatchScanEngine(ScanEngine):
             np.stack([h["pos"] for h in hosts]).astype(np.float64),
             np.stack([h["sz"] for h in hosts]).astype(np.float64))
         self._init_span = float(np.max(x1 - x0))
-        return EngineState(
+        state = EngineState(
             pos=self._f32(np.stack([h["pos"] for h in hosts])),
             sz=self._f32(np.stack([h["sz"] for h in hosts])),
             # (B, 1, h, w, C): the per-video model batch dim of the
@@ -636,6 +729,7 @@ class BatchScanEngine(ScanEngine):
             init_enc=init_enc, mem_enc=tuple(mem_enc),
             mem_conf=mem_conf, mem_idx=mem_idx,
             mem_len=torch.ones(b, dtype=torch.int32, device=self.device))
+        return state if self._shards is None else self.scatter_state(state)
 
     def _prep_chunks(self, frames_u8: np.ndarray, n_valid: np.ndarray):
         """Host-side chunking of (B, N, H, W, 3) into (T, B, H, W, 3)
@@ -676,6 +770,18 @@ class BatchScanEngine(ScanEngine):
 
     @torch.inference_mode()
     def _run(self, state: EngineState, block, valid, origin_b, donate):
+        if self._shards is not None:
+            states, outs = [], []
+            for sh, st, (a, b) in zip(self._shards, state.shards,
+                                      self._lanes):
+                st, o = sh._run(st, block[:, a:b].to(sh.device),
+                                valid[:, a:b].to(sh.device),
+                                origin_b[a:b].to(sh.device), donate)
+                states.append(st)
+                outs.append(o)
+            return MeshState(tuple(states)), tuple(
+                torch.cat([o[k].to(self.device) for o in outs], dim=1)
+                for k in range(3))
         if not donate:
             state = state._replace(
                 mem_enc=tuple(r.clone() for r in state.mem_enc))
@@ -807,6 +913,8 @@ class BatchScanEngine(ScanEngine):
     @torch.inference_mode()
     def _splice(self, state: EngineState, lanes, ls: dict,
                 k: int) -> EngineState:
+        if self._shards is not None:
+            return self._splice_shards(state, lanes, ls)
         dev = self.device
         idx = torch.as_tensor(np.asarray(lanes, np.int64), device=dev)
         zero = torch.zeros_like(idx)
@@ -835,6 +943,27 @@ class BatchScanEngine(ScanEngine):
             mem_idx=put(state.mem_idx, slots),
             mem_len=put(state.mem_len, torch.ones(k, dtype=torch.int32,
                                                   device=dev)))
+
+    def _splice_shards(self, state: MeshState, lanes, ls: dict):
+        """`_splice` on a mesh: each global lane maps to a shard and a
+        local lane; each shard splices its own in one call."""
+        per = self.batch // len(self._shards)
+        shards = list(state.shards)
+        for i, sh in enumerate(self._shards):
+            js = [j for j, lane in enumerate(lanes) if lane // per == i]
+            if not js:
+                continue
+            two = [r for j in js for r in (2 * j, 2 * j + 1)]
+            sub = {key: ls[key][js] for key in ("pos", "sz", "avg", "im_hw")}
+            sub["zf_enc"] = tuple(tuple(t[js].to(sh.device) for t in side)
+                                  for side in ls["zf_enc"])
+            sub["feat_enc"] = tuple(f[two].to(sh.device)
+                                    for f in ls["feat_enc"])
+            shards[i] = sh._splice(shards[i], [lanes[j] - i * per
+                                               for j in js], sub, len(js))
+        self._avg_b = _cat([sh._avg_b for sh in self._shards])
+        self._im_hw_b = _cat([sh._im_hw_b for sh in self._shards])
+        return MeshState(tuple(shards))
 
     # ---- ROI streaming ----
 

@@ -6,12 +6,20 @@ Counterpart of `usot_tpu/train/step.py` (ref: scripts/train_usot.py:
 The model and the optimizer hold the state and are updated in place;
 BatchNorm's running stats update during the forward, as flax threads
 them through `mutable=["batch_stats"]`.
+
+Data parallel (`group`): JAX's step under a `data` mesh is the
+single-device program on the global batch, and so is this one; see
+`make_train_step`.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
+import torch.distributed as dist
 
 from usot_tpu_torch.models.layers import BatchNorm
+from usot_tpu_torch.parallel.mesh import world_size
 from usot_tpu_torch.train.optim import set_lr
 
 
@@ -54,12 +62,40 @@ def _bn_stats(model):
             for t in (m.running_mean, m.running_var)]
 
 
+@contextlib.contextmanager
+def set_bn_group(model, group):
+    """Every `BatchNorm` of `model` reduces its train-mode statistics
+    over `group` inside the block (None: its own batch)."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.group = group
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.group = None
+
+
+def _all_reduce_grads(params, group):
+    """Average the gradients of `params` over `group` in one all-reduce
+    of their concatenation."""
+    flat = torch.cat([p.grad.reshape(-1) for p in params])
+    dist.all_reduce(flat, group=group)
+    flat /= world_size(group)
+    offset = 0
+    for p in params:
+        n = p.grad.numel()
+        p.grad.copy_(flat[offset:offset + n].view_as(p.grad))
+        offset += n
+
+
 def make_train_step(model, optimizer, cycle_memory: bool,
                     stage_bn_train: bool, lambda_1: float,
                     lambda_total: float = 0.9,
                     lambda_1_naive: float = 0.2,
                     remat: bool = False,
-                    accum_steps: int = 1):
+                    accum_steps: int = 1,
+                    group=None, sync_bn: bool = True):
     """Build the step for one training phase: `step(batch, lr, cls_ratio)
     -> metrics` (0-d tensors on the batch's device: cls_loss_ori,
     cls_loss_memory, reg_loss, loss).
@@ -89,7 +125,25 @@ def make_train_step(model, optimizer, cycle_memory: bool,
     caller made the model float64), as JAX's `_images_f32` feeds them;
     a bf16 model's stem casts them to its compute dtype, and the losses
     are float32 (`train/losses.py`). Parameters, BN statistics and the
-    optimizer's state stay float32."""
+    optimizer's state stay float32.
+
+    group: a process group of W ranks (None: one process). Each rank
+    calls the step on its rows of the global batch (`parallel.mesh.
+    rank_rows`, which also orders them for accum_steps), and the step
+    is the one-process step on the global batch:
+    - train-mode BN statistics are reduced over the group
+      (`BatchNorm.group`; `sync_bn=False` keeps them per rank, only to
+      measure what that costs);
+    - the losses' masked means count over the group and are scaled by
+      W (`train/losses.py`), so the average over ranks of each rank's
+      gradient is the global loss's gradient; the gradients are averaged
+      in ONE all-reduce per step, after accumulation (JAX's single
+      gradient all-reduce);
+    - the metrics are the global losses (one all-reduce), and the gate
+      decides on the global loss, so every rank skips or applies the
+      update together.
+    The ranks start from the same parameters (broadcast them after a
+    load), so they stay equal."""
     stats = _bn_stats(model)
     dtype = next(model.parameters()).dtype
     trainable = [p for g in optimizer.param_groups for p in g["params"]]
@@ -105,12 +159,13 @@ def make_train_step(model, optimizer, cycle_memory: bool,
             l_ori, l_mem, l_reg = model.forward_train(
                 *common, search_memory=images(batch["search_memory"]),
                 search_bbox=batch["search_bbox"], cls_ratio=cls_ratio,
-                stage_bn_train=stage_bn_train, remat=remat)
+                stage_bn_train=stage_bn_train, remat=remat, group=group)
             loss = (lambda_1 * l_ori + (lambda_total - lambda_1) * l_mem
                     + 1.0 * l_reg)
         else:
             l_ori, _, l_reg = model.forward_train(
-                *common, stage_bn_train=stage_bn_train, remat=remat)
+                *common, stage_bn_train=stage_bn_train, remat=remat,
+                group=group)
             l_mem = torch.zeros((), device=l_ori.device)
             loss = lambda_1_naive * l_ori + 1.0 * l_reg
         return loss, l_ori, l_mem, l_reg
@@ -129,6 +184,22 @@ def make_train_step(model, optimizer, cycle_memory: bool,
         return out
 
     def step(batch, lr, cls_ratio):
+        with set_bn_group(model, group if sync_bn else None):
+            out = [t.detach() for t in local_grads(batch, cls_ratio)]
+        if group is not None:
+            _all_reduce_grads(trainable, group)
+            flat = torch.stack([t.float() for t in out])  # one all-reduce
+            dist.all_reduce(flat, group=group)
+            out = list(flat / world_size(group))
+        loss = out[0]
+        # is_valid_number gate (ref: train_utils.py:8-9)
+        if bool(torch.isfinite(loss) & (loss < 1e4)):
+            set_lr(optimizer, float(lr))
+            optimizer.step()
+        return {"cls_loss_ori": out[1], "cls_loss_memory": out[2],
+                "reg_loss": out[3], "loss": loss}
+
+    def local_grads(batch, cls_ratio):
         for p in trainable:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -153,13 +224,6 @@ def make_train_step(model, optimizer, cycle_memory: bool,
                 for p in trainable:
                     p.grad.mul_(inv)
             out = [t * inv for t in total]
-        loss = out[0].detach()
-        # is_valid_number gate (ref: train_utils.py:8-9)
-        if bool(torch.isfinite(loss) & (loss < 1e4)):
-            set_lr(optimizer, float(lr))
-            optimizer.step()
-        return {"cls_loss_ori": out[1].detach(),
-                "cls_loss_memory": out[2].detach(),
-                "reg_loss": out[3].detach(), "loss": loss}
+        return out
 
     return step
