@@ -179,6 +179,28 @@ Phases, each of which raises on failure (exit code != 0):
      (c) `cli.train.train` with `--devices 1` over NCCL (a group of one)
      for 2 steps, and `entry.dryrun_multichip(2)` (two gloo ranks on the
      card).
+ 16. trained weights (run after phase 15): (a) `usot_tpu_torch.tools.
+     train_full_schedule` through its subprocess path at full width
+     (64/256, B=8, 4 memory frames) at its defaults: the 30-epoch
+     schedule (memory at 6, unfreezing at 10, shifts at 10 and 20,
+     checkpoints from 5) at 32 samples (4 steps) per epoch, unbroken,
+     SIGKILLed in epoch 16 and resumed from `checkpoint_e15.pth`, in
+     deterministic mode: every transition, the prefix and resume deltas
+     at 0.0, the loss falling, no correlation kernel launched by the
+     children; the sha256 of `checkpoint_e30.pth` recorded; (b) `tools.
+     accuracy_parity_run` on it (6 videos of 40 frames at 360x360): the
+     f32 batch engine's AUC within 0.005 of the parity tracker's, the
+     trained AUC above calibrated random weights', bf16's OPE gap
+     recorded (these weights do not hold their targets, so an OPE gap
+     measures the chaos after the loss; `PERF.md`), and bf16's
+     decisions held teacher-forced: every step from the f32 engine's
+     carry, the argmax agreeing on at least half the lane-steps, scores
+     and memory confidences within `BF16_LANE_TOL` where it does; JAX's
+     figures printed beside; (c) the batch engine free-running at B=16
+     and 32 on phase 7's video (65 frames) in f32 and bf16 on the
+     trained weights, every box finite; (d) phase 9's ROI leg on them (1e-2 px), its `roi_*`
+     telemetry recorded. K1 launches of (b)-(d):
+     `launches_by_path["trained"]`.
 The line before the last is the `kernels` JSON object, the last
 {"ok": true, "device": {...}}. Without CUDA the script exits with an
 error and prints no result. It imports nothing of JAX.
@@ -187,6 +209,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import hashlib
 import json
 import os
 import re
@@ -1261,6 +1284,74 @@ def protocol_datasets(h=480, w=640, box=60, vot_lanes=8, vot_lengths=(40, 64),
     return vot, refill
 
 
+def roi_leg(model, runner, p, device, lanes=8, n_frames=64,
+            hw=(720, 1280), box=60, chunk=16, accept_frames=8):
+    """`track_batch_roi` at `suggest_roi`'s size against `track_batch` on
+    the same `lanes` videos of `n_frames` frames at `hw` within 1e-2 px,
+    and `accept_frames` one-frame chunks (the first accepted whatever
+    the weights do: its anchor is the init position, and
+    `suggest_roi(chunk=1)` holds its window). Returns (record with the
+    engine's `roi_*` telemetry, K1 launches of the ROI path)."""
+    from usot_tpu_torch.tracker.engine import BatchScanEngine
+
+    rh, rw = hw
+    clips = [_protocol_video(n_frames + 1, rh, rw, box, seed=60 + v)
+             for v in range(lanes)]
+    videos = [(f[0], np.array(c[0], float), np.array([box, box], float))
+              for f, c in clips]
+    frames = np.stack([np.stack(f[1:]) for f, _ in clips])
+    n_valid = np.full(lanes, n_frames)
+    engine = BatchScanEngine(model, p, canvas_h=rh, canvas_w=rw,
+                             batch=lanes, max_frames=n_frames + 8,
+                             chunk=chunk, device=device)
+    _, pos_f, sz_f, _ = engine.track_batch(engine.init_batch(videos, runner),
+                                           frames, n_valid)
+    state = engine.init_batch(videos, runner)
+    state_1 = _clone(state)  # a replay consumes the state it starts from
+    roi = engine.suggest_roi(state)
+    roi_1 = engine.suggest_roi(state, chunk=1)
+    engine.warm_roi(state, roi)
+    engine.warm_roi(state, roi_1, chunk=1)
+    telemetry = ("roi_accepted", "roi_replays", "roi_chunks",
+                 "roi_escalations", "roi_final", "roi_fallback",
+                 "roi_bytes_sent", "roi_bytes_full_equiv")
+
+    def held(pos, sz, k):
+        err = float(max(np.abs(pos - pos_f[:, :k]).max(),
+                        np.abs(sz - sz_f[:, :k]).max()))
+        check(err <= 1e-2, f"ROI against full frames: {err} px > 1e-2")
+        return err
+
+    reset_launch_counts()  # the ROI path starts here
+    t0 = time.perf_counter()
+    _, pos_r, sz_r, _ = engine.track_batch_roi(state, frames, n_valid,
+                                               roi=roi)
+    roi_s = time.perf_counter() - t0
+    run = {k: getattr(engine, k) for k in telemetry}
+    _, pos_1, sz_1, _ = engine.track_batch_roi(
+        state_1, frames[:, :accept_frames],
+        np.full(lanes, accept_frames), roi=roi_1, chunk=1)
+    k1 = launch_counts()["K1"]  # read just after the path
+    err = held(pos_r, sz_r, n_frames)
+    err_1 = held(pos_1, sz_1, accept_frames)
+    check(engine.roi_accepted >= 1,
+          f"one-frame ROI chunks: none accepted "
+          f"({engine.roi_chunks} dispatched)")
+    rec = {
+        "lanes": lanes, "canvas": [rh, rw], "frames": int(n_valid.sum()),
+        "chunk": chunk,
+        "suggested_roi": roi, "max_abs_err_px": err, "seconds": roi_s,
+        "fps": int(n_valid.sum()) / roi_s, "k1_launches": k1,
+        **run,
+        "roi_bytes_per_chunk": lanes * chunk * roi * roi * 3,
+        "full_bytes_per_chunk": lanes * chunk * rh * rw * 3,
+        "one_frame_chunks": {
+            "frames": accept_frames, "suggested_roi": roi_1,
+            "max_abs_err_px": err_1,
+            **{k: getattr(engine, k) for k in telemetry}}}
+    return rec, k1
+
+
 def run_protocols(model, device, h=480, w=640, box=60, vot_lanes=8,
                   vot_lengths=(40, 64), chunk=16, refill_lanes=4,
                   refill_lengths=(8, 80), refill_videos=10, roi_lanes=8,
@@ -1356,78 +1447,24 @@ def run_protocols(model, device, h=480, w=640, box=60, vot_lanes=8,
                      "splice_bitwise": True}
 
     # -- ROI streaming against full frames
-    rh, rw = roi_hw
-    lanes = [_protocol_video(roi_frames + 1, rh, rw, box, seed=60 + v)
-             for v in range(roi_lanes)]
-    videos = [(f[0], np.array(c[0], float), np.array([box, box], float))
-              for f, c in lanes]
-    frames = np.stack([np.stack(f[1:]) for f, _ in lanes])
-    n_valid = np.full(roi_lanes, roi_frames)
-    engine = BatchScanEngine(model, p, canvas_h=rh, canvas_w=rw,
-                             batch=roi_lanes, max_frames=roi_frames + 8,
-                             chunk=chunk, device=device)
-    _, pos_f, sz_f, _ = engine.track_batch(engine.init_batch(videos, runner),
-                                           frames, n_valid)
-    state = engine.init_batch(videos, runner)
-    state_1 = _clone(state)  # a replay consumes the state it starts from
-    roi = engine.suggest_roi(state)
-    roi_1 = engine.suggest_roi(state, chunk=1)
-    engine.warm_roi(state, roi)
-    engine.warm_roi(state, roi_1, chunk=1)
-    telemetry = ("roi_accepted", "roi_replays", "roi_chunks",
-                 "roi_escalations", "roi_final", "roi_fallback",
-                 "roi_bytes_sent", "roi_bytes_full_equiv")
-
-    def held(pos, sz, k):
-        err = float(max(np.abs(pos - pos_f[:, :k]).max(),
-                        np.abs(sz - sz_f[:, :k]).max()))
-        check(err <= 1e-2, f"ROI against full frames: {err} px > 1e-2")
-        return err
-
-    reset_launch_counts()  # the ROI path starts here
-    t0 = time.perf_counter()
-    _, pos_r, sz_r, _ = engine.track_batch_roi(state, frames, n_valid,
-                                               roi=roi)
-    roi_s = time.perf_counter() - t0
-    run = {k: getattr(engine, k) for k in telemetry}
-    # one-frame chunks from the init state: the first one's anchor is
-    # the init position and `suggest_roi(chunk=1)` holds its window, so
-    # it is accepted whatever the weights do, and its crop runs at a
-    # non-zero origin
-    _, pos_1, sz_1, _ = engine.track_batch_roi(
-        state_1, frames[:, :roi_accept_frames],
-        np.full(roi_lanes, roi_accept_frames), roi=roi_1, chunk=1)
-    k1["roi"] = launch_counts()["K1"]  # read just after the path
-    err = held(pos_r, sz_r, roi_frames)
-    err_1 = held(pos_1, sz_1, roi_accept_frames)
-    check(engine.roi_accepted >= 1,
-          f"one-frame ROI chunks: none accepted "
-          f"({engine.roi_chunks} dispatched)")
-    full_chunk = roi_lanes * chunk * rh * rw * 3
-    rec["roi"] = {
-        "lanes": roi_lanes, "canvas": [rh, rw], "frames": int(n_valid.sum()),
-        "chunk": chunk,
-        "suggested_roi": roi, "max_abs_err_px": err, "seconds": roi_s,
-        "fps": int(n_valid.sum()) / roi_s, "k1_launches": k1["roi"],
-        **run,
-        "roi_bytes_per_chunk": roi_lanes * chunk * roi * roi * 3,
-        "full_bytes_per_chunk": full_chunk,
-        "one_frame_chunks": {
-            "frames": roi_accept_frames, "suggested_roi": roi_1,
-            "max_abs_err_px": err_1,
-            **{k: getattr(engine, k) for k in telemetry}}}
+    rec["roi"], k1["roi"] = roi_leg(model, runner, p, device, roi_lanes,
+                                    roi_frames, roi_hw, box, chunk,
+                                    roi_accept_frames)
+    # the ROI leg's first video, which the checks below start from
+    f, c = _protocol_video(1, *roi_hw, box, seed=60)
+    first = (f[0], np.array(c[0], float), np.array([box, box], float))
 
     # -- donate=False with full rings; the ring copy at the VOT size
     engine = BatchScanEngine(model, p, canvas_h=h, canvas_w=w,
                              batch=vot_lanes, max_frames=donate_max_frames,
                              chunk=max(4, donate_max_frames // 2),
                              device=device)
-    _donate_check(engine, runner, videos[:1] * vot_lanes, h, w, box)
+    _donate_check(engine, runner, [first] * vot_lanes, h, w, box)
     engine = BatchScanEngine(model, p, canvas_h=h, canvas_w=w,
                              batch=vot_lanes, max_frames=2048, chunk=chunk,
                              device=device)
     lane_bytes, copy_ms = _ring_copy(
-        engine, engine.init_batch(videos[:1] * vot_lanes, runner), device)
+        engine, engine.init_batch([first] * vot_lanes, runner), device)
     rec["donate"] = {"bitwise": True, "max_frames": donate_max_frames,
                      "ring_bytes_per_lane_at_2048": lane_bytes,
                      "ring_copy_ms_b8_2048": copy_ms}
@@ -1440,7 +1477,7 @@ def run_protocols(model, device, h=480, w=640, box=60, vot_lanes=8,
         engine = BatchScanEngine(model, p, canvas_h=h, canvas_w=w, batch=b,
                                  max_frames=4 * chunk, chunk=chunk,
                                  device=device)
-        state = engine.init_batch(videos[:1] * b, runner)
+        state = engine.init_batch([first] * b, runner)
         staged = engine.stage_frames(
             np.stack([np.stack(_protocol_video(2 * chunk + 1, h, w, box,
                                                seed=70)[0][1:])] * b),
@@ -3001,7 +3038,8 @@ def _picked_cells(sharded, plain, st_p, frames):
 BF16_HELD = ("score", "mem_conf")
 
 
-def _hold_gaps(gaps, agree, tol, bf16, label, min_agree=0.5):
+def _hold_gaps(gaps, agree, tol, bf16, label, min_agree=0.5,
+               what="sharded engine", against="the unsharded engine"):
     """f32: every gap within `tol`. bf16: the scores and memory
     confidences within `tol` on the lane-steps whose score-map argmax
     agrees with the unsharded engine's (`agree`, a list of (B,) bool
@@ -3014,8 +3052,8 @@ def _hold_gaps(gaps, agree, tol, bf16, label, min_agree=0.5):
     if bf16:
         agree = np.concatenate(agree)
         rec["argmax_agrees_share"] = share = float(np.mean(agree))
-        check(share >= min_agree, f"sharded engine {label}: the argmax "
-              f"agrees with the unsharded engine's on {share} of the "
+        check(share >= min_agree, f"{what} {label}: the argmax "
+              f"agrees with {against}'s on {share} of the "
               f"lane-steps (at least {min_agree})")
     for k, g in gaps.items():
         g = np.concatenate(g)
@@ -3029,7 +3067,7 @@ def _hold_gaps(gaps, agree, tol, bf16, label, min_agree=0.5):
             rec[k].update(max_agreeing=float(np.max(ga)) if ga.size else 0.0,
                           share_over_tol_agreeing=over)
         check(not held or over == 0.0,
-              f"sharded engine {label} against the unsharded engine: {k} "
+              f"{what} {label} against {against}: {k} "
               f"{rec[k]}, tol {tol}")
     return rec
 
@@ -3141,7 +3179,11 @@ def run_sharded_engine(model, device, f32_rec, bf16_rec, batch=32,
     free-running on random weights, which walk the tracker off and, in
     a B=16 batch, to non-finite boxes (an unsharded engine of B=16 does
     the same at the same step on the same frames): their values are
-    counted, not held."""
+    counted, not held. The bbox exp of random weights sits at f32's
+    overflow edge, which the last bits of the convolutions decide (on the
+    CPU both packages overflow at the first step,
+    `tests/test_torch_port_random_b16.py`); on trained weights every lane
+    of B=16 and B=32 stays finite (phase 16c)."""
     from usot_tpu_torch.parallel.mesh import make_mesh
     from usot_tpu_torch.tracker.engine import BatchScanEngine, \
         synthetic_video as bench_video
@@ -3419,6 +3461,262 @@ def run_nccl_and_dryrun(device, width=64, channels=256, batch=12, mem=4,
     return rec
 
 
+# ------------------------------------------------------- trained weights
+
+# JAX's figures on its own chip, printed beside the port's and never
+# held: `TRAIN_r05.json` (the full schedule) and `PARITY.md:128-133`
+# (the accuracy run: the bf16 scan engine against the parity tracker)
+JAX_TRAINED = {"loss_first_last": [5.107192, 1.312194],
+               "auc_parity": 0.5748, "auc_batch_bf16": 0.5665,
+               "precision20": [1.0, 1.0]}
+ACC_F32_TOL = 0.005  # parity vs batch f32: |dAUC| of the OPE
+
+
+def trained_schedule(device, out, width=64, channels=256, batch=8,
+                     samples=32, end_epoch=30, kill=16, videos=12):
+    """Phase 16a: `tools.train_full_schedule` through its subprocess path
+    (unbroken, SIGKILLed in epoch `kill`, resumed) under `out`, at the
+    tool's defaults: its `checkpoint_e30.pth` is the one
+    `regen_bench_ckpt` leaves (sha256 of the file recorded). Held:
+    every transition, the prefix and resume deltas at 0.0 (deterministic
+    mode), the loss falling, no correlation kernel launched by the
+    children. Returns the tool's record."""
+    from usot_tpu_torch.tools import train_full_schedule as tfs
+
+    argv = ["--end-epoch", str(end_epoch), "--kill", str(kill),
+            "--width", str(width), "--channels", str(channels),
+            "--samples", str(samples), "--batch", str(batch),
+            "--videos", str(videos), "--root", os.path.abspath(out)]
+    if device.type != "cuda":
+        argv += ["--device", str(device)]
+    rec = tfs.run(tfs.parse_args(argv))
+    with open(rec["checkpoint_e_end"], "rb") as f:
+        rec["checkpoint_sha256"] = hashlib.sha256(f.read()).hexdigest()
+    check(rec["failures"] == [], f"full schedule: {rec['failures']}")
+    check(all(v for v in rec["transitions"].values()),
+          f"transitions {rec['transitions']}")
+    check(rec["interrupted_prefix_max_delta"] == 0.0
+          and rec["resume_max_loss_delta"] == 0.0,
+          f"kill / resume deltas {rec['interrupted_prefix_max_delta']}, "
+          f"{rec['resume_max_loss_delta']}")
+    check(rec["loss_falls"], f"loss {rec['loss_first_last']}")
+    launched = {leg: sum(c.values())
+                for leg, c in rec["kernel_launches"].items()}
+    check(not any(launched.values()),
+          f"training launched a correlation kernel: {launched}")
+    summary = {k: rec[k] for k in (
+        "device", "torch", "model", "end_epoch", "kill_epoch",
+        "transitions", "interrupted_prefix_max_delta",
+        "resume_max_loss_delta", "loss_first_last", "wall_s", "shards",
+        "unbroken_steps", "kernel_launches", "checkpoint_sha256")}
+    summary["jax_loss_first_last"] = JAX_TRAINED["loss_first_last"]
+    print(json.dumps({"trained_schedule": summary}), flush=True)
+    return rec
+
+
+def trained_accuracy(device, ckpt, out, width=64, channels=256, videos=6,
+                     frames=40, f32_tol=ACC_F32_TOL, min_gain=0.0):
+    """Phase 16b: `tools.accuracy_parity_run` on `ckpt`: the parity
+    tracker (f32), the batch engine (f32, bf16) and the parity tracker on
+    calibrated random weights through the test CLI and OPE. Held: every
+    video scored, the f32 batch engine's AUC within `f32_tol` of the
+    parity tracker's, the trained AUC more than `min_gain` above the
+    random one. bf16's OPE gap is recorded (`trained_bf16_steps` holds
+    bf16's decisions). Returns (record, K1 launches)."""
+    from usot_tpu_torch.tools import accuracy_parity_run as acc
+
+    argv = ["--ckpt", ckpt, "--root", os.path.abspath(out),
+            "--videos", str(videos), "--frames", str(frames),
+            "--width", str(width), "--channels", str(channels)]
+    if device.type != "cuda":
+        argv += ["--device", str(device)]
+    reset_launch_counts()  # the accuracy runs start here
+    t0 = time.perf_counter()
+    res = acc.run(acc.parse_args(argv))
+    k1 = launch_counts()["K1"]  # read just after the path
+    f32 = res["delta_USOT_batch_f32"]
+    check(f32["auc"] <= f32_tol,
+          f"parity vs batch f32: |dAUC| {f32['auc']} > {f32_tol}")
+    check(res["USOT_parity"]["auc"] - res["USOT_random"]["auc"] > min_gain,
+          f"trained AUC {res['USOT_parity']['auc']} <= random "
+          f"{res['USOT_random']['auc']}")
+    rec = {**res, "seconds": time.perf_counter() - t0, "k1_launches": k1,
+           "limits": {"f32_auc": f32_tol, "min_gain": min_gain},
+           "jax": JAX_TRAINED}
+    print(json.dumps({"trained_accuracy": rec}), flush=True)
+    return rec, k1
+
+
+def _cast_like(state, like):
+    """A copy of an engine carry in the dtypes of the carry `like`."""
+    if isinstance(state, torch.Tensor):
+        return state.to(like.dtype, copy=True)
+    items = [_cast_like(s, t) for s, t in zip(state, like)]
+    return type(state)(*items) if hasattr(state, "_fields") else tuple(items)
+
+
+def trained_bf16_steps(model, device, root, videos=6, frames=40,
+                       tol=BF16_LANE_TOL, min_agree=0.5):
+    """Phase 16b, bf16's decisions: the accuracy benchmark's videos (one
+    lane each, initialised as the test CLI does) through the batch engine
+    in f32 and in bf16, each bf16 step from the f32 engine's carry cast
+    to bf16 (teacher-forced). Held as phase 15 holds bf16 (`_hold_gaps`):
+    the score-map argmax agreeing with f32's on at least `min_agree` of
+    the lane-steps, the scores and memory confidences within `tol` where
+    it does. Returns (record, K1 launches)."""
+    from usot_tpu_torch.core.geometry import get_axis_aligned_bbox
+    from usot_tpu_torch.tools.accuracy_parity_run import build_benchmark
+    from usot_tpu_torch.tracker.engine import BatchScanEngine, best_cells
+    from usot_tpu_torch.tracker.runner import ModelRunner
+
+    reader = build_benchmark(root, videos, frames)
+    with open(os.path.join(root, "OTB2015.json")) as f:
+        meta = json.load(f)
+    clips, inits = [], []
+    for v in meta.values():
+        clip = np.stack([reader(os.path.join(root, "OTB2015", n))
+                         for n in v["img_names"]])
+        cx, cy, w, h = get_axis_aligned_bbox(
+            np.asarray(v["gt_rect"][0], np.float64) - [1, 1, 0, 0])
+        clips.append(clip)
+        inits.append((clip[0], np.array([cx, cy]), np.array([w, h])))
+    clips = np.stack(clips)  # (B, frames, H, W, 3)
+    b, _, h, w, _ = clips.shape
+    p = _tracker_config("small")
+    m16 = bf16_model(model)
+    e32, e16 = (BatchScanEngine(m, p, canvas_h=h, canvas_w=w, batch=b,
+                                max_frames=frames + 8, chunk=1,
+                                device=device) for m in (model, m16))
+    st32 = e32.init_batch(inits, ModelRunner(model, device=device))
+    like = e16.init_batch(inits, ModelRunner(m16, device=device))
+
+    def cells(eng, st, x):
+        scale_z, xf = eng._search(st, x, eng._avg_b, eng._im_hw_b,
+                                  eng._origin0)
+        return best_cells(eng.p, eng._consts, st.sz, scale_z,
+                          *eng._heads(st, xf))
+
+    gaps = {k: [] for k in ("pos", "sz", "score", "mem_conf")}
+    agree = []
+    valid = torch.ones(1, b, dtype=torch.bool, device=device)
+    reset_launch_counts()  # the teacher-forced steps start here
+    for t in range(1, frames):
+        block = torch.from_numpy(clips[:, t][None]).to(device)
+        st16 = _cast_like(st32, like)
+        with torch.inference_mode():
+            agree.append((cells(e16, st16, block[0])
+                          == cells(e32, st32, block[0])).cpu().numpy())
+        st16, out16 = e16.run_chunk(st16, block, valid)
+        st32, out32 = e32.run_chunk(st32, block, valid)
+        for k, g in _step_gaps(out16, out32, st16.mem_conf[None],
+                               st32.mem_conf[None]).items():
+            gaps[k].append(g)
+    k1 = launch_counts()["K1"]  # read just after the path
+    rec = _hold_gaps(gaps, agree, tol, True, "bf16", min_agree,
+                     what="trained batch engine", against="float32")
+    rec.update(lanes=b, steps=frames - 1, tol=tol, k1_launches=k1)
+    print(json.dumps({"trained_bf16_steps": rec}), flush=True)
+    return rec, k1
+
+
+def trained_engine(model, device, batches=(16, 32), n_frames=65, chunk=64,
+                   h=480, w=640):
+    """Phase 16c: the batch engine free-running at each of `batches` on
+    phase 7's video (its first 65 frames: random weights overflowed at
+    step 24), in f32 and bf16, on the trained weights. Held: the
+    boxes finite on every lane and step (`_check_track`). Returns
+    (record, K1 launches)."""
+    from usot_tpu_torch.tracker.engine import BatchScanEngine, \
+        synthetic_video as bench_video
+    from usot_tpu_torch.tracker.runner import ModelRunner
+
+    p = _tracker_config("small")
+    frames = bench_video(n_frames, h=h, w=w)
+    single = np.stack(frames[1:])
+    rec, k1 = {}, 0
+    for dtype, m in (("f32", model), ("bf16", bf16_model(model))):
+        runner = ModelRunner(m, device=device)
+        for b in batches:
+            engine = BatchScanEngine(m, p, canvas_h=h, canvas_w=w, batch=b,
+                                     max_frames=max(256, n_frames + 8),
+                                     chunk=chunk, device=device)
+            videos = [(frames[0], np.array([200.0, 240.0]),
+                       np.array([60.0, 60.0]))] * b
+            state = engine.init_batch(videos, runner)
+            reset_launch_counts()  # this run's path starts here
+            t0 = time.perf_counter()
+            _, pos, sz, _ = engine.track_batch(
+                state, np.broadcast_to(single[None], (b,) + single.shape),
+                np.full(b, n_frames - 1))
+            dt = time.perf_counter() - t0
+            k1 += launch_counts()["K1"]  # read just after the path
+            finite = bool(np.all(np.isfinite(pos)) and np.all(np.isfinite(sz)))
+            rec[f"B={b} {dtype}"] = {
+                "finite_every_lane_and_step": finite,
+                "ms_per_step": dt / (n_frames - 1) * 1e3,
+                "final_pos_lane0": pos[0, -1].tolist(),
+                "final_sz_lane0": sz[0, -1].tolist()}
+            _check_track(f"trained batch engine B={b} {dtype}", pos, sz)
+            del engine
+    print(json.dumps({"trained_engine": rec}), flush=True)
+    return rec, k1
+
+
+def run_trained_weights(device, width=64, channels=256, schedule_kw=None,
+                        accuracy_kw=None, bf16_kw=None, engine_kw=None,
+                        roi_kw=None, out_dir=None, card=""):
+    """Phase 16: the full schedule's weights, trained here (16a), scored
+    end to end and bf16's decisions on them held (16b), then tracking
+    with them: the batch engine at B=16 and 32 (16c) and phase 9's ROI
+    leg (16d, held at 1e-2 px, the engine's `roi_*` telemetry recorded).
+    Returns (record, K1 launches on the path: 16b-d; the training
+    children launch none)."""
+    import tempfile
+
+    from usot_tpu_torch.models.usot import build_usot
+    from usot_tpu_torch.tracker.runner import ModelRunner
+    from usot_tpu_torch.train.checkpoint import load_model_state
+
+    t_start = time.perf_counter()
+    rec = {"card": card}
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        sched = trained_schedule(device, os.path.join(tmp, "schedule"),
+                                 width=width, channels=channels,
+                                 **(schedule_kw or {}))
+        rec["schedule"] = {k: sched[k] for k in (
+            "transitions", "interrupted_prefix_max_delta",
+            "resume_max_loss_delta", "loss_first_last", "wall_s", "shards",
+            "unbroken_steps", "kernel_launches", "device", "torch",
+            "checkpoint_sha256")}
+        rec["schedule"]["loss_avg"] = {
+            e: r["loss_avg"] for e, r in sched["epochs"].items()}
+        ckpt = sched["checkpoint_e_end"]
+        rec["accuracy"], k1_acc = trained_accuracy(
+            device, ckpt, os.path.join(tmp, "accuracy"), width=width,
+            channels=channels, **(accuracy_kw or {}))
+        model = build_usot(mem_size=7, width=width, channels=channels,
+                           fused_xcorr=True)
+        model.load_state_dict(load_model_state(ckpt))
+        model = model.to(device).eval()
+        rec["bf16_steps"], k1_bf16 = trained_bf16_steps(
+            model, device, os.path.join(tmp, "bf16_steps"),
+            **(bf16_kw or {}))
+    rec["engine"], k1_engine = trained_engine(model, device,
+                                              **(engine_kw or {}))
+    rec["roi"], k1_roi = roi_leg(model, ModelRunner(model, device=device),
+                                 _tracker_config("small"), device,
+                                 **(roi_kw or {}))
+    print(json.dumps({"trained_roi": rec["roi"]}), flush=True)
+    k1 = {"accuracy": k1_acc, "bf16_steps": k1_bf16, "engine": k1_engine,
+          "roi": k1_roi}
+    if device.type == "cuda":
+        check(all(n > 0 for n in k1.values()),
+              f"trained weights: K1 not launched on every path {k1}")
+    rec["k1_launches"] = dict(k1, total=sum(k1.values()))
+    rec["seconds"] = time.perf_counter() - t_start
+    return rec, sum(k1.values())
+
+
 # ------------------------------------------------------------------- main
 
 def ptxas_report(built):
@@ -3516,6 +3814,11 @@ def main() -> int:
     nccl_rec = run_nccl_and_dryrun(device)
     phase15_s = time.perf_counter() - t15
     print(f"phase 15: {phase15_s:.1f} s", flush=True)
+    # phase 16: weights the full schedule trains here, end to end
+    t16 = time.perf_counter()
+    trained_rec, trained_k1 = run_trained_weights(device, card=card)
+    phase16_s = time.perf_counter() - t16
+    print(f"phase 16: {phase16_s:.1f} s", flush=True)
 
     def pick(records, tag, shape):
         return next(r for r in records
@@ -3525,14 +3828,18 @@ def main() -> int:
                 "scan_engine": scan_k1, "protocols": proto_k1,
                 "batch_engine_bf16": bf16_k1, "fixture_f32_bf16": fixture_k1,
                 "trax": trax_k1, "onekey": onekey_k1, "entry": entry_k1,
-                "sharded": sharded_k1}
+                "sharded": sharded_k1, "trained": trained_k1}
+    schedule_launches = trained_rec["schedule"]["kernel_launches"]
     k1_line = kernel_line("K1", pick(
         k1_records, "K1", "engine, instance 255, B=32, M=7, C=256, f32"),
         sum(k1_paths.values()), {**k1_paths, "tools": tool_counts["K1"],
                                  "training": train_launches["K1"],
                                  "training_bf16": bf16_train_launches["K1"],
                                  "preprocessing": mining_launches["K1"],
-                                 "data_parallel": dp_launches["K1"]})
+                                 "data_parallel": dp_launches["K1"],
+                                 "training_full_schedule": sum(
+                                     c["K1"] for c in
+                                     schedule_launches.values())})
     k1_bf16 = pick(k1_records, "K1",
                    "engine, instance 255, B=32, M=7, C=256, bf16")
     k1_line["bf16"] = {k: k1_bf16[k] for k in (
@@ -3548,7 +3855,9 @@ def main() -> int:
                         "training": train_launches["K2"],
                         "training_bf16": bf16_train_launches["K2"],
                         "preprocessing": mining_launches["K2"],
-                        "data_parallel": dp_launches["K2"]}),
+                        "data_parallel": dp_launches["K2"],
+                        "training_full_schedule": sum(
+                            c["K2"] for c in schedule_launches.values())}),
         kernel_line("K3", pick(single_records, "K3",
                                "B=32, 29x29 / 5x5, C=256, bf16"),
                     tool_counts["K3"], {
@@ -3556,7 +3865,9 @@ def main() -> int:
                         "training": train_launches["K3"],
                         "training_bf16": bf16_train_launches["K3"],
                         "preprocessing": mining_launches["K3"],
-                        "data_parallel": dp_launches["K3"]}),
+                        "data_parallel": dp_launches["K3"],
+                        "training_full_schedule": sum(
+                            c["K3"] for c in schedule_launches.values())}),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched")
@@ -3575,6 +3886,7 @@ def main() -> int:
                "entry": entry_rec, "phase14_s": phase14_s,
                "sharded_engine": sharded_rec, "data_parallel": dp_rec,
                "nccl_and_dryrun": nccl_rec, "phase15_s": phase15_s,
+               "trained_weights": trained_rec, "phase16_s": phase16_s,
                "seconds": time.perf_counter() - t_start}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

@@ -48,7 +48,7 @@ def test_importing_every_module_loads_no_jax():
                  "preprocessing.correlation", "preprocessing.pwclite",
                  "preprocessing.flow2box", "preprocessing.inference",
                  "preprocessing.crop_gen", "cli.parse_flow",
-                 *SLICE_9_MODULES, *SLICE_10_MODULES):
+                 *SLICE_9_MODULES, *SLICE_10_MODULES, *SLICE_11_MODULES):
         assert "usot_tpu_torch." + name in loaded, name
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -61,6 +61,9 @@ SLICE_9_MODULES = ("eval.trax_protocol", "cli.vot_wrapper", "eval.region",
                    "entry")
 # data parallelism: the mesh, the process group, the step runs
 SLICE_10_MODULES = ("parallel", "parallel.mesh", "parallel.steps")
+# the full schedule with kill and resume, the trained checkpoint, accuracy
+SLICE_11_MODULES = ("tools.train_full_schedule", "tools.regen_bench_ckpt",
+                    "tools.accuracy_parity_run")
 
 
 def test_evaluation_and_pipeline_import_no_optional_library():
@@ -85,8 +88,8 @@ def test_evaluation_and_pipeline_import_no_optional_library():
 
 def test_training_imports_no_optional_library():
     """The trainer and its modules (data parallelism too), the
-    flax-checkpoint reader, the synthetic-data tools and the pseudo-label
-    factory import PyYAML only
+    flax-checkpoint reader, the synthetic-data tools, the pseudo-label
+    factory, the full-schedule and accuracy tools import PyYAML only
     when a config file is read, and neither OpenCV, Pillow, tensorboardX
     nor msgpack at module level (the GPU machine has none of them)."""
     script = textwrap.dedent("""
@@ -106,6 +109,9 @@ def test_training_imports_no_optional_library():
         import usot_tpu_torch.preprocessing.flow2box
         import usot_tpu_torch.parallel.mesh
         import usot_tpu_torch.parallel.steps
+        import usot_tpu_torch.tools.train_full_schedule
+        import usot_tpu_torch.tools.regen_bench_ckpt
+        import usot_tpu_torch.tools.accuracy_parity_run
         print(sorted(n for n in sys.modules if n.split(".")[0] in
                      ("yaml", "cv2", "PIL", "tensorboardX", "msgpack")))
     """)
@@ -128,7 +134,9 @@ def test_no_source_file_names_jax():
     assert len(paths) > 20
     for tool in ("bench_xcorr.py", "bench_memhead.py", "profile_engine.py",
                  "timing.py", "synthetic_shards.py", "measure_bf16_drift.py",
-                 "ab_card_layers.py", "onekey_synthetic.py"):
+                 "ab_card_layers.py", "onekey_synthetic.py",
+                 "train_full_schedule.py", "regen_bench_ckpt.py",
+                 "accuracy_parity_run.py"):
         assert os.path.join(PORT, "tools", tool) in paths
     for path in paths:
         with open(path) as f:
@@ -201,6 +209,17 @@ def test_entry_points_raise_without_a_gpu(tmp_path):
         vot_wrapper.run(str(tmp_path / "none.pth"), "mask",
                         fin=io.StringIO(""), fout=fout)
     assert fout.getvalue() == ""
+    # the full-schedule and accuracy tools, before they write anything
+    from usot_tpu_torch.tools import accuracy_parity_run, train_full_schedule
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_full_schedule.run(train_full_schedule.parse_args(
+            ["--root", str(tmp_path / "schedule")]))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        accuracy_parity_run.run(accuracy_parity_run.parse_args(
+            ["--root", str(tmp_path / "bench"),
+             "--ckpt", str(tmp_path / "none.pth")]))
+    assert not any(tmp_path.iterdir())
 
 
 def test_only_imageio_touches_an_image_library():

@@ -729,6 +729,106 @@ def test_data_parallel_training_runs_at_small_width(tmp_path):
     assert np.isfinite(rec["dryrun_loss"])
 
 
+def test_trained_weights_run_at_small_width(tmp_path, monkeypatch):
+    """Phase 16 at w8c32: the full-schedule tool's three children (the
+    30-epoch schedule, one step of B=2 per epoch, the kill in epoch 16),
+    the accuracy runs on its last checkpoint, the batch engine at two
+    batches in f32 and bf16 and the ROI leg on the trained weights. The
+    accuracy and bf16 limits are the card's at full width: a model of 8
+    channels after 30 steps tracks loosely and may not beat random
+    weights, so here any gap passes; `test_trained_accuracy_check_*` and
+    `test_trained_bf16_steps_*` hold the checks."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")
+    rec, launches = chip_smoke.run_trained_weights(
+        CPU, width=8, channels=32,
+        schedule_kw=dict(batch=2, samples=2, videos=2),
+        accuracy_kw=dict(videos=2, frames=10, f32_tol=1.0, min_gain=-1.0),
+        bf16_kw=dict(videos=2, frames=10, tol=1.0, min_agree=0.0),
+        engine_kw=dict(batches=(2, 3), n_frames=9, chunk=4, h=320, w=320),
+        roi_kw=dict(lanes=2, n_frames=8, hw=(448, 512), box=48, chunk=8),
+        out_dir=str(tmp_path))
+    assert launches == 0 and rec["k1_launches"]["total"] == 0
+    sched = rec["schedule"]
+    assert sched["interrupted_prefix_max_delta"] == 0.0
+    assert sched["resume_max_loss_delta"] == 0.0
+    assert sorted(map(int, sched["loss_avg"])) == list(range(1, 31))
+    assert set(sched["unbroken_steps"]["ms_per_step"]) == {
+        "naive", "cycle_frozen", "cycle_unfrozen"}
+    acc = rec["accuracy"]
+    assert set(acc) >= {"USOT_parity", "USOT_batch_f32", "USOT_batch_bf16",
+                        "USOT_random", "delta_USOT_batch_f32",
+                        "delta_USOT_batch_bf16", "jax"}
+    assert rec["bf16_steps"]["steps"] == 9 and rec["bf16_steps"]["lanes"] == 2
+    assert set(rec["engine"]) == {"B=2 f32", "B=3 f32", "B=2 bf16",
+                                  "B=3 bf16"}
+    assert all(r["finite_every_lane_and_step"]
+               for r in rec["engine"].values())
+    assert rec["roi"]["max_abs_err_px"] <= 1e-2
+    assert rec["roi"]["one_frame_chunks"]["roi_accepted"] >= 1
+
+
+@pytest.mark.parametrize("gap", ["f32_auc", "untrained"])
+def test_trained_accuracy_check_catches_a_gap(monkeypatch, gap):
+    """Phase 16b fails on a batch engine 0.006 AUC off in f32 (limit
+    0.005) or on trained weights no better than random ones."""
+    from usot_tpu_torch.tools import accuracy_parity_run as acc
+
+    f32 = {"auc": 0.006 if gap == "f32_auc" else 0.0, "precision20": 0.0}
+    ops = {"auc": 0.5, "precision20": 0.9}
+    rand = {"auc": 0.6 if gap == "untrained" else 0.1, "precision20": 0.1}
+    monkeypatch.setattr(acc, "run", lambda args: {
+        "USOT_parity": ops, "USOT_random": rand,
+        "delta_USOT_batch_f32": f32, "delta_USOT_batch_bf16": f32})
+    with pytest.raises(RuntimeError, match="parity vs batch|random"):
+        chip_smoke.trained_accuracy(CPU, "ckpt.pth", "out")
+
+
+def _fixture_model():
+    """The committed trained fixture, read without flax."""
+    from usot_tpu_torch.models.usot import build_usot
+    from usot_tpu_torch.train.checkpoint import load_model_state
+    from usot_tpu_torch.utils.msgpack import read_msgpack
+
+    path = os.path.join(os.path.dirname(__file__), "fixtures",
+                        "tiny_usot_w8c32.msgpack")
+    meta = read_msgpack(path)
+    model = build_usot(mem_size=int(meta["mem_size"]),
+                       width=int(meta["width"]),
+                       channels=int(meta["channels"]), fused_xcorr=True)
+    model.load_state_dict(load_model_state(path))
+    return model.eval()
+
+
+def test_trained_bf16_steps_hold_on_the_trained_fixture(tmp_path):
+    """Phase 16b's bf16 check at the card's limits on the committed
+    trained fixture (w8c32) over the accuracy benchmark's 6 videos."""
+    rec, launches = chip_smoke.trained_bf16_steps(
+        _fixture_model(), CPU, str(tmp_path), frames=12)
+    assert launches == 0 and rec["steps"] == 11 and rec["lanes"] == 6
+    assert rec["argmax_agrees_share"] >= 0.5
+    assert rec["score"]["share_over_tol_agreeing"] == 0.0
+
+
+def test_trained_bf16_steps_catch_wrong_scores(monkeypatch, tmp_path):
+    """The bf16 hold fails a bf16 engine whose scores are 0.1 off (the
+    argmax unchanged)."""
+    from usot_tpu_torch.tracker.engine import BatchScanEngine
+
+    plain_chunk = BatchScanEngine._chunk
+
+    def off(self, *args):
+        carry, (pos, sz, score) = plain_chunk(self, *args)
+        if self.dtype == torch.bfloat16:
+            score = score + 0.1
+        return carry, (pos, sz, score)
+
+    monkeypatch.setattr(BatchScanEngine, "_chunk", off)
+    with pytest.raises(RuntimeError, match="trained batch engine bf16 "
+                                           "against float32: score"):
+        chip_smoke.trained_bf16_steps(_fixture_model(), CPU, str(tmp_path),
+                                      videos=2, frames=4)
+
+
 def test_entry_runs_on_the_cpu():
     rec, launches = chip_smoke.run_entry(CPU)
     assert launches == 0 and rec["shapes"][3] == [1, 31, 31, 256]

@@ -41,7 +41,10 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def main(argv=None):
+def main(argv=None, reader=None):
+    """Build the shard sets of `--epochs`; `reader(path)` gives a frame's
+    BGR uint8 array (default: the dataset's own, which decodes files):
+    frames held in memory on a machine with no image codec."""
     args = parse_args(argv)
     cfg = load_config(args.cfg if os.path.exists(args.cfg) else None)
     tc = cfg.USOT.TRAIN
@@ -51,7 +54,7 @@ def main(argv=None):
         if not args.force and read_meta(out) is not None:
             print(f"epoch {epoch}: exists, skipping ({out})")
             continue
-        dataset = USOTDataset(cfg, seed=epoch)
+        dataset = USOTDataset(cfg, seed=epoch, reader=reader)
         dataset.cycle_memory = epoch >= tc.MEMORY_EPOCH
         meta = write_shards(dataset, out, n_samples=args.samples,
                             shard_size=args.shard_size,

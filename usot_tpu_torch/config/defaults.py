@@ -1,6 +1,7 @@
 """Config system: global defaults + strict YAML override. The port's own
 copy of `usot_tpu/config/defaults.py`; PyYAML is imported only by
-`update_config`, when a file is read (the GPU machine has none).
+`update_config`, when a file is read, and without it the file is read as
+JSON (the GPU machine has no PyYAML).
 
 Mirrors the reference's three-tier config (ref: lib/config/config_usot.py:13-122,
 experiments/train/USOT.yaml, experiments/test/USOT.yaml) but with our own
@@ -9,6 +10,8 @@ test-time tracker hyper-parameters live in `TrackerConfig`
 (see usot_tpu_torch/tracker/config.py).
 """
 from __future__ import annotations
+
+import json
 
 from usot_tpu_torch.utils.edict import EDict
 
@@ -133,11 +136,17 @@ def _update_dict(cfg: EDict, k, v, model_name: str) -> None:
 
 
 def update_config(cfg: EDict, config_file: str) -> EDict:
-    """Merge a YAML experiment file into cfg, validating keys exist."""
-    import yaml
-
+    """Merge a YAML experiment file into cfg, validating keys exist. On a
+    machine without PyYAML the file is read as JSON (which is YAML, so
+    either package reads a JSON config file the same)."""
     with open(config_file) as f:
-        exp = yaml.safe_load(f.read())
+        text = f.read()
+    try:
+        import yaml
+    except ImportError:
+        exp = json.loads(text)
+    else:
+        exp = yaml.safe_load(text)
     return update_config_dict(cfg, exp)
 
 
