@@ -48,7 +48,8 @@ def test_importing_every_module_loads_no_jax():
                  "preprocessing.correlation", "preprocessing.pwclite",
                  "preprocessing.flow2box", "preprocessing.inference",
                  "preprocessing.crop_gen", "cli.parse_flow",
-                 *SLICE_9_MODULES, *SLICE_10_MODULES, *SLICE_11_MODULES):
+                 *SLICE_9_MODULES, *SLICE_10_MODULES, *SLICE_11_MODULES,
+                 *SLICE_12_MODULES):
         assert "usot_tpu_torch." + name in loaded, name
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -64,13 +65,17 @@ SLICE_10_MODULES = ("parallel", "parallel.mesh", "parallel.steps")
 # the full schedule with kill and resume, the trained checkpoint, accuracy
 SLICE_11_MODULES = ("tools.train_full_schedule", "tools.regen_bench_ckpt",
                     "tools.accuracy_parity_run")
+# the measuring entry points and their compile watch
+SLICE_12_MODULES = ("utils.compile_watch", "tools.bench",
+                    "tools.vot_protocol_bench", "tools.bench_train")
 
 
 def test_evaluation_and_pipeline_import_no_optional_library():
     """The TraX wrapper, the evaluation toolkit, the one-key pipeline,
-    the profiling helpers and `entry` import neither OpenCV, Pillow,
-    PyYAML, matplotlib, numba nor the pip `trax` package at module level
-    (the GPU machine has none of them), nor anything of JAX."""
+    the profiling helpers, `entry`, the measuring tools and their compile
+    watch import neither OpenCV, Pillow, PyYAML, matplotlib, numba nor
+    the pip `trax` package at module level (the GPU machine has none of
+    them), nor anything of JAX."""
     script = textwrap.dedent("""
         import importlib, sys
         for name in %r:
@@ -78,7 +83,7 @@ def test_evaluation_and_pipeline_import_no_optional_library():
         print(sorted(n for n in sys.modules if n.split(".")[0] in
                      ("cv2", "PIL", "yaml", "matplotlib", "numba", "trax",
                       "jax", "jaxlib", "flax", "usot_tpu")))
-    """ % (SLICE_9_MODULES,))
+    """ % ((*SLICE_9_MODULES, *SLICE_12_MODULES),))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300,
@@ -136,7 +141,8 @@ def test_no_source_file_names_jax():
                  "timing.py", "synthetic_shards.py", "measure_bf16_drift.py",
                  "ab_card_layers.py", "onekey_synthetic.py",
                  "train_full_schedule.py", "regen_bench_ckpt.py",
-                 "accuracy_parity_run.py"):
+                 "accuracy_parity_run.py", "bench.py",
+                 "vot_protocol_bench.py", "bench_train.py"):
         assert os.path.join(PORT, "tools", tool) in paths
     for path in paths:
         with open(path) as f:
@@ -219,6 +225,19 @@ def test_entry_points_raise_without_a_gpu(tmp_path):
         accuracy_parity_run.run(accuracy_parity_run.parse_args(
             ["--root", str(tmp_path / "bench"),
              "--ckpt", str(tmp_path / "none.pth")]))
+    assert not any(tmp_path.iterdir())
+    # the measuring tools, before they build, read or write anything
+    from usot_tpu_torch.tools import bench, bench_train, vot_protocol_bench
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench.main(["--json", str(tmp_path / "bench.json")],
+                   env={"BENCH_CKPT": str(tmp_path / "none.pth")})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        vot_protocol_bench.main(["--root", str(tmp_path / "vot"), "--out",
+                                 str(tmp_path / "vot.json")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench_train.main(["--shards", str(tmp_path / "shards"), "--json",
+                          str(tmp_path / "train.json")])
     assert not any(tmp_path.iterdir())
 
 

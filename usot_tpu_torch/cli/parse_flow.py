@@ -26,7 +26,7 @@ from os.path import join
 
 import torch
 
-from usot_tpu_torch.core.device import resolve_device
+from usot_tpu_torch.core.device import f32_numerics, resolve_device
 from usot_tpu_torch.data import imageio
 from usot_tpu_torch.preprocessing.crop_gen import (build_train_json,
                                                    crop_video_frames,
@@ -110,10 +110,7 @@ def main(argv=None, reader=None, writer=None):
     image)` (default `imageio.write_image`) stores a crop."""
     args = parse_args(argv)
     device = resolve_device(args.device)
-    if device.type == "cuda":
-        # the flow's numerics are f32: cuDNN defaults to TF32
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+    f32_numerics()
     reader = reader or imageio.read_image
     gap = 1 if args.dataset == "ytvos" else 3
     init_adjacent = 1 if args.dataset == "ytvos" else 4

@@ -27,7 +27,7 @@ from os.path import join
 import numpy as np
 import torch
 
-from usot_tpu_torch.core.device import resolve_device
+from usot_tpu_torch.core.device import f32_numerics, resolve_device
 from usot_tpu_torch.core.geometry import cxy_wh_2_rect, get_axis_aligned_bbox
 from usot_tpu_torch.data.benchmark import load_dataset
 from usot_tpu_torch.data.imageio import read_image
@@ -479,7 +479,8 @@ def track_dataset_vot_batched(model, runner, dataset, args, reader=None):
     big/small instance size spills to the scan engine, which finishes the
     video from that frame: the protocol of --engine scan (ref:
     scripts/test_usot.py:85-103). Returns one record per group (videos,
-    frames, lanes, seconds, fps, chunks, replays, spills)."""
+    frames, lanes, seconds, fps, chunks, replays, and `spilled`: the
+    names of the videos spilled)."""
     tracker_path = _tracker_path(args)
     groups = _probe_groups(
         dataset, lambda v: _result_path(args, tracker_path, v["name"]),
@@ -502,11 +503,11 @@ def track_dataset_vot_batched(model, runner, dataset, args, reader=None):
             results = run_vot_group(engine, runner, canvases, hws, gts,
                                     stats=stats)
 
-            total, spills = 0, 0
+            total, spilled = 0, []
             for vi, name in enumerate(group):
                 res = results[vi]
                 if res.spill_from is not None:
-                    spills += 1
+                    spilled.append(name)
                     print(f"spill: {name} re-init at frame "
                           f"{res.spill_from} flipped the instance size; "
                           "finishing on the scan engine")
@@ -521,7 +522,7 @@ def track_dataset_vot_batched(model, runner, dataset, args, reader=None):
                 total += len(res.regions)
             dt = time.perf_counter() - t0
             records.append(dict(videos=b, frames=total, lanes=b, seconds=dt,
-                                fps=total / max(dt, 1e-9), spills=spills,
+                                fps=total / max(dt, 1e-9), spilled=spilled,
                                 **stats))
             print("VOT group of {:d} videos ({:d} frames): {:.1f}s "
                   "-> {:.1f} fps aggregate".format(
@@ -560,10 +561,7 @@ def main(argv=None, reader=None):
 
     args = parse_args(argv)
     device = resolve_device(args.device)
-    if device.type == "cuda":
-        # the float32 path's numerics are f32: cuDNN defaults to TF32
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+    f32_numerics()
     model = load_model(args, device)
     runner = ModelRunner(model, device=device)
     dataset = load_dataset(args.dataset, args.dataset_root)

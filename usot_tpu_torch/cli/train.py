@@ -44,7 +44,7 @@ import torch
 import torch.distributed as dist
 
 from usot_tpu_torch.config.defaults import load_config
-from usot_tpu_torch.core.device import resolve_device
+from usot_tpu_torch.core.device import f32_numerics, resolve_device
 from usot_tpu_torch.data.dataset import USOTDataset
 from usot_tpu_torch.data.loader import DataLoader
 from usot_tpu_torch.data.shards import (ShardLoader, device_prefetch,
@@ -215,10 +215,7 @@ def _train(cfg, args, device, reader, group=None):
     if resume_path:
         ckpt_epoch = peek_epoch(resume_path)
         start_epoch = ckpt_epoch + 1
-    if device.type == "cuda":
-        # parity with the f32 reference: cuDNN defaults to TF32
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+    f32_numerics()
 
     writer = None
     if main_rank:

@@ -177,7 +177,7 @@ def run(ckpt_path: str = "var/snapshot/USOT_star.pth",
     import torch
 
     from usot_tpu_torch.cli.test import load_model
-    from usot_tpu_torch.core.device import resolve_device
+    from usot_tpu_torch.core.device import f32_numerics, resolve_device
     from usot_tpu_torch.core.geometry import (cxy_wh_2_rect,
                                               get_axis_aligned_bbox)
     from usot_tpu_torch.data.imageio import read_image
@@ -185,10 +185,7 @@ def run(ckpt_path: str = "var/snapshot/USOT_star.pth",
     from usot_tpu_torch.tracker.tracker import USOTTracker
 
     device = resolve_device(device)
-    if device.type == "cuda":
-        # the float32 path's numerics are f32: cuDNN defaults to TF32
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+    f32_numerics()
     reader = reader or read_image
     model = load_model(argparse.Namespace(
         resume=ckpt_path, mem_size=mem_size, width=width,

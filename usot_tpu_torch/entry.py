@@ -28,7 +28,7 @@ import tempfile
 import numpy as np
 import torch
 
-from usot_tpu_torch.core.device import resolve_device
+from usot_tpu_torch.core.device import f32_numerics, resolve_device
 
 
 def entry(device=None):
@@ -38,6 +38,7 @@ def entry(device=None):
     from usot_tpu_torch.models.usot import build_usot, init_model
 
     dev = resolve_device(device)
+    f32_numerics()
     model = build_usot(mem_size=4, fused_xcorr=True)
     init_model(model, torch.Generator().manual_seed(0), device=dev)
     model.cast_weights()
@@ -84,6 +85,7 @@ def _dryrun_loss(n_rows: int, device, group=None) -> float:
     from usot_tpu_torch.train.optim import build_optimizer
     from usot_tpu_torch.train.step import make_train_step
 
+    f32_numerics()
     model = build_usot(mem_size=2, search_size=95, sf_size=11)
     init_model(model, torch.Generator().manual_seed(0), device=device)
     rank = 0

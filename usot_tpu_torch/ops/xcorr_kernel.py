@@ -17,7 +17,9 @@ arch=compute_90a,code=sm_90a` into a shared library with a plain C
 interface at first use, into `usot_tpu_torch/_build/` (git-ignored)
 under a name keyed by a hash of the source, the headers beside it and
 the flags, and bound with `ctypes`; `build_all` compiles every source at
-once, one `nvcc` each.
+once, one `nvcc` each. Each library built, found built or loaded is
+reported to the callbacks in `BUILD_LISTENERS` (`utils/compile_watch.py`
+attributes them to phases).
 
 The wrappers take CUDA tensors only and raise on anything their kernel
 does not take; the plain versions for CPU tensors are in
@@ -31,6 +33,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -49,6 +53,15 @@ MAX_TAP = 8  # kMaxTap of csrc/xcorr_tile.cuh
 _ENTRIES = {"usot_xcorr_groupdw": (SOURCE, 9),
             "usot_xcorr_depthwise_multi": (DEPTHWISE_SOURCE, 5),
             "usot_xcorr_depthwise": (DEPTHWISE_SOURCE, 5)}
+# callbacks fn(event, source, seconds): event "built" (seconds: that
+# nvcc's wall time), "cached" (found under BUILD_DIR) or "loaded" (bound
+# with ctypes); seconds is 0.0 for the last two
+BUILD_LISTENERS: list = []
+
+
+def _report(event: str, source: Path, seconds: float = 0.0):
+    for fn in BUILD_LISTENERS:
+        fn(event, source, seconds)
 
 
 def groupdw_out_hw(xs, ks):
@@ -95,22 +108,32 @@ def _compile(sources) -> dict:
         lib = library_path(source)
         if lib.exists():
             done[source] = (lib, "")
+            _report("cached", source)
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        t0 = time.perf_counter()
         proc = subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        running.append((source, lib, tmp, proc))
-    failures = []
-    for source, lib, tmp, proc in running:
+        running.append((source, lib, tmp, proc, t0))
+
+    def wait(job):  # this process's own seconds, from start to its end
+        proc, t0 = job[3], job[4]
         log, _ = proc.communicate()
+        return log, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max(1, len(running))) as pool:
+        waited = list(pool.map(wait, running))
+    failures = []
+    for (source, lib, tmp, proc, _), (log, seconds) in zip(running, waited):
         if proc.returncode != 0:
             failures.append(f"nvcc {source.name} failed ({proc.returncode})"
                             f":\n{log}")
             continue
         os.replace(tmp, lib)
         done[source] = (lib, log)
+        _report("built", source, seconds)
     if failures:
         raise RuntimeError("\n".join(failures))
     return done
@@ -137,6 +160,7 @@ def _entry(name: str):
     if lib is None:
         path, _ = build(source)
         lib = _libs[source] = ctypes.CDLL(str(path))
+        _report("loaded", source)
     fn = getattr(lib, name)
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * n_ptr
     fn.restype = ctypes.c_int

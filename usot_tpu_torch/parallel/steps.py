@@ -36,6 +36,7 @@ import time
 import numpy as np
 import torch
 
+from usot_tpu_torch.core.device import f32_numerics
 from usot_tpu_torch.models.layers import BatchNorm
 from usot_tpu_torch.parallel.mesh import rank_rows, world_size
 from usot_tpu_torch.train.losses import _masked_mean
@@ -145,10 +146,7 @@ def run_cases(job: dict, device, group=None, rank: int = 0) -> dict:
     from usot_tpu_torch.models.usot import build_usot
 
     world = world_size(group)
-    if device.type == "cuda":
-        # parity with the f32 reference: cuDNN defaults to TF32
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+    f32_numerics()
     model = None
     results = {}
     for case in job["cases"]:

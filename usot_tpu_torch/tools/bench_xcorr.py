@@ -20,7 +20,7 @@ import json
 import numpy as np
 import torch
 
-from usot_tpu_torch.core.device import resolve_device
+from usot_tpu_torch.core.device import f32_numerics, resolve_device
 from usot_tpu_torch.ops.xcorr_kernel import launch_counts
 from usot_tpu_torch.ops.xcorr import (xcorr_depthwise,
                                       xcorr_depthwise_pairwise,
@@ -80,9 +80,7 @@ def main(argv=None) -> list:
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="bf16")
     args = ap.parse_args(argv)
     device = resolve_device(None)
-    # f32 as chip_smoke.py runs it: cuDNN would use TF32 by default
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    f32_numerics()
     print(f"{torch.cuda.get_device_name(device)}; {card_line()}; "
           f"dtype {args.dtype}", flush=True)
     records = run(stages(args.batch, DTYPES[args.dtype], device),

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from usot_tpu_torch.core.device import resolve_device
+from usot_tpu_torch.core.device import f32_numerics, resolve_device
 from usot_tpu_torch.models.calibrate import calibrate_batch_stats
 from usot_tpu_torch.models.usot import build_usot, init_model
 from usot_tpu_torch.tools.timing import card_line
@@ -139,9 +139,7 @@ def main(argv=None) -> dict:
                     choices=["float32", "bfloat16"],
                     help="the engine's compute dtype")
     args = ap.parse_args(argv)
-    # f32 as chip_smoke.py runs it: cuDNN would use TF32 by default
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    f32_numerics()
     out = profile(args.batch, args.frames, args.fused_head,
                   getattr(torch, args.dtype))
     print(json.dumps(out), flush=True)
