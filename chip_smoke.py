@@ -96,7 +96,8 @@ Phases, each of which raises on failure (exit code != 0):
      phase 10's float32 ones; a profiler breakdown of the bf16
      unfrozen cycle-memory step; the live loader's samples/s alone
      (naive and cycle memory, 1 and N threads) and pipelined through
-     `device_prefetch` into the bf16 step, with the card's idle share
+     `device_prefetch` into the bf16 step over 4 timed steps, with the
+     card's idle share
      (computed from the profiled step's device time and the pipelined
      wall time). No correlation kernel launched
      (`launches_by_path["training_bf16"]`);
@@ -181,9 +182,10 @@ Phases, each of which raises on failure (exit code != 0):
      card).
  16. trained weights (run after phase 15): (a) `usot_tpu_torch.tools.
      train_full_schedule` through its subprocess path at full width
-     (64/256, B=8, 4 memory frames) at its defaults: the 30-epoch
-     schedule (memory at 6, unfreezing at 10, shifts at 10 and 20,
-     checkpoints from 5) at 32 samples (4 steps) per epoch, unbroken,
+     (64/256, B=8, 4 memory frames) at its defaults but 16 samples (2
+     steps) per epoch, not 32 (the tool's 32 took 312 s of the time
+     limit on a slow host): the 30-epoch schedule (memory at 6,
+     unfreezing at 10, shifts at 10 and 20, checkpoints from 5), unbroken,
      SIGKILLed in epoch 16 and resumed from `checkpoint_e15.pth`, in
      deterministic mode: every transition, the prefix and resume deltas
      at 0.0, the loss falling, no correlation kernel launched by the
@@ -208,9 +210,9 @@ Phases, each of which raises on failure (exit code != 0):
      trajectory finite, every leg run (or the ROI leg's skip logged), K1
      launched 3 times per frame step of the staged leg, the compile
      watch reporting no nvcc build (phase 2 built the kernels); (b)
-     `tools.vot_protocol_bench` cut to 8 videos of 150-225 frames at
-     360x480 (at 300-450 frames the phase took 235 s on an H100, the
-     scan engine's B=1 run 95 s of it), chunk 32, 8 lanes, both
+     `tools.vot_protocol_bench` cut to 6 videos of 100-150 frames at
+     360x480 (8 of 150-225 took 77 s on a slow host, the scan engine's
+     B=1 run 54 s of it), chunk 32, 8 lanes, both
      engines: one result row per frame of every video in both, the
      spill video spilled in the batch run, the skeletons identical in
      at least half the videos, and boxes on identical skeletons within
@@ -221,7 +223,26 @@ Phases, each of which raises on failure (exit code != 0):
      ms per step, samples/s and peak memory recorded, no correlation
      kernel launched. K1 launches: `launches_by_path["bench"]` and
      `["votbench"]`.
-The line before the last is the `kernels` JSON object, the last
+ 18. step attribution and the lockstep benches (run after phase 17, on
+     phase 16's weights, at full width; `run_step_tools`):
+     `tools.microbench_step --mfu` at B=32 in bf16, `--iters 5`, every
+     stage; `tools.cliff_sweep` at B=32 and 48 on full, memhead and
+     backbone; `tools.cliff_bisect` at B=32, chains A-F (F equal to E
+     within 2^-7); `tools.bench_memops --frames 16 --iters 3`;
+     `tools.bench_lockstep --vot --refill` cut to 48 frames, 8 videos
+     and 8 lanes; then `tools.process_battery` over the JSON records
+     they wrote (`chiprun_out/battery/`). Every time finite and > 0,
+     every roofline share at most 100 % (above it the count is wrong),
+     K1 launched by each stage that runs it (2 in the offline head, 3 in
+     a memory head and the full step, 1 in `GroupDW.multi`; chain D 1,
+     chain F 3) and K3 once by "xcorr shift (1 pair 7x7)", whose 7x7
+     kernel is also held against its plain version; memops' bitwise
+     checks; exactly `failures` restarts in every VOT repeat; refill
+     and padded groups within the lockstep tolerance. K1 launches:
+     `launches_by_path["microbench"]`, `["cliff"]` and
+     `["lockstep_bench"]`; K3's `["microbench"]`.
+Each phase's seconds are printed as it ends. The line before the last is
+the `kernels` JSON object, the last
 {"ok": true, "device": {...}}. Without CUDA the script exits with an
 error and prints no result. It imports nothing of JAX.
 """
@@ -2085,7 +2106,7 @@ def pipelined_steps(kw, state, cfg, reader, device, batch, workers,
 
 def run_training_bf16(device, width=64, channels=256, batch=12, mem=4,
                       iters=2, workers=None, timing_steps=3, f32_steps=None,
-                      n_videos=24, pipe_steps=8, out_dir=None):
+                      n_videos=24, pipe_steps=4, out_dir=None):
     """Phase 12: the trainer's default path (`cli.train.train` with no
     shard set) in bf16 on `tools/train_synthetic.py`'s dataset made in
     memory (`n_videos` videos of 12 frames, read through the dataset's
@@ -3493,11 +3514,14 @@ ACC_F32_TOL = 0.005  # parity vs batch f32: |dAUC| of the OPE
 
 
 def trained_schedule(device, out, width=64, channels=256, batch=8,
-                     samples=32, end_epoch=30, kill=16, videos=12):
+                     samples=16, end_epoch=30, kill=16, videos=12):
     """Phase 16a: `tools.train_full_schedule` through its subprocess path
     (unbroken, SIGKILLed in epoch `kill`, resumed) under `out`, at the
-    tool's defaults: its `checkpoint_e30.pth` is the one
-    `regen_bench_ckpt` leaves (sha256 of the file recorded). Held:
+    tool's defaults but for `samples` per epoch: 16, two steps of B=8,
+    where the tool's 32 (the checkpoint `regen_bench_ckpt` leaves) took
+    312 s of the script's time limit on a slow host (sha256 of the
+    file recorded; at 8 samples the weights' batch vs parity AUC gap
+    broke the 0.005 limit). Held:
     every transition, the prefix and resume deltas at 0.0 (deterministic
     mode), the loss falling, no correlation kernel launched by the
     children. Returns the tool's record."""
@@ -3813,8 +3837,8 @@ def lockstep_gaps(a, b, steps=LOCKSTEP_STEPS):
             "all_frames": len(every) - 1}
 
 
-def run_votbench_tool(weights, device, out_dir=None, card="", videos=8,
-                      min_frames=150, max_frames=225, h=360, w=480, chunk=32,
+def run_votbench_tool(weights, device, out_dir=None, card="", videos=6,
+                      min_frames=100, max_frames=150, h=360, w=480, chunk=32,
                       batch=8, width=None, channels=None,
                       tol=LOCKSTEP_TOL):
     """Phase 17b: `tools.vot_protocol_bench` (both engines) on `weights`,
@@ -3906,6 +3930,157 @@ def run_measuring_tools(weights, device, card="", sha256=None, bench_kw=None,
     return rec, k1, train_launches
 
 
+# ------------------------------------------------- step attribution tools
+
+# the K1 and K3 calls of one call of each microbench stage that has them
+STEP_KERNEL_CALLS = {
+    "offline head": {"K1": 2}, "offline+memory head": {"K1": 3},
+    "ENC offline+memory head": {"K1": 3}, "ENC+FOLDED head": {"K1": 3},
+    "  groupdw multi (fused)": {"K1": 1}, "xcorr shift (1 pair 7x7)": {"K3": 1},
+    "FULL STEP (native batched)": {"K1": 3}}
+CLIFF_KERNEL_CALLS = {"full": {"K1": 3}, "memhead": {"K1": 3},
+                      "xcorr_pair": {"K1": 1}, "groupdw": {"K1": 1}}
+BISECT_KERNEL_CALLS = {"chain D": {"K1": 1}, "chain F": {"K1": 3}}
+
+
+def _finite_positive(label, *values):
+    for v in values:
+        check(v is not None and np.isfinite(v) and v > 0,
+              f"{label}: time {v} is not finite and > 0")
+
+
+def _stage_checks(tool, rows, device, calls):
+    """Every row's times finite and > 0 (device ms on the card), its
+    roofline share at most 100 % (above it the count is wrong), and the
+    correlation kernels of its stage called (`kernel_calls`, any device)
+    and, on the card, launched (`launches`) as `calls` says."""
+    for r in rows:
+        label = f"{tool} {r['stage'].strip()}"
+        if device.type == "cuda":
+            _finite_positive(label, r["device_ms"])
+            check(r["share_pct"] <= 100.0,
+                  f"{label}: roofline share {r['share_pct']:.1f} % > 100 %")
+        if "kernel_calls" not in r:
+            continue   # an increment of the backbone prefixes
+        _finite_positive(label, r["call_ms"])
+        want = calls.get(r["stage"], {})
+        check(r["kernel_calls"] == want,
+              f"{label}: kernel calls {r['kernel_calls']}, expected {want}")
+        if device.type == "cuda":
+            got = {k: n for k, n in r["launches"].items() if n}
+            check(got == want, f"{label}: launches {got}, expected {want}")
+
+
+def xcorr_7x7_check(device, batch=32, channels=256, dtype=torch.bfloat16):
+    """K3 at the microbench's 7x7 kernel (29x29 -> 25x25 of a 31x31
+    search feature) against its plain version."""
+    from usot_tpu_torch.ops.xcorr import (xcorr_depthwise_pairwise,
+                                          xcorr_depthwise_pairwise_reference)
+
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    x = torch.randn((batch, 31, 31, channels), generator=gen).to(device,
+                                                                 dtype)
+    k = torch.randn((batch, 7, 7, channels), generator=gen).to(device, dtype)
+    err, tol = _compare("K3", "7x7 (microbench)", xcorr_depthwise_pairwise(
+        x, k), xcorr_depthwise_pairwise_reference(x, k), dtype, device)
+    return {"max_abs_err": err, "tol": tol}
+
+
+def run_step_tools(weights, device, card="", out_dir=None, width=None,
+                   channels=None, micro=("--batch", "32", "--iters", "5"),
+                   cliff_batches=(32, 48), cliff_stages="full,memhead,backbone",
+                   bisect=("--batch", "32", "--iters", "5"),
+                   memops=("--frames", "16", "--iters", "3"),
+                   lockstep=("--batch", "8", "--frames", "48", "--videos",
+                             "8", "--reps", "2"), cliff_iters=5):
+    """Phase 18: the step attribution and lockstep tools on `weights`:
+    `microbench_step --mfu` (bf16), `cliff_sweep` at `cliff_batches` on
+    `cliff_stages`, `cliff_bisect` A-F, `bench_memops`, `bench_lockstep
+    --vot --refill`, their JSON records under `out_dir` (default
+    `chiprun_out/battery`), then `process_battery` over them. Returns
+    (record, {path: launches by kernel})."""
+    from usot_tpu_torch.tools import (bench_lockstep, bench_memops,
+                                      cliff_bisect, cliff_sweep,
+                                      microbench_step, process_battery)
+
+    t0 = time.perf_counter()
+    d = out_dir or os.path.join(OUT_DIR, "battery")
+    os.makedirs(d, exist_ok=True)
+    dev = ["--device", str(device)]
+    model = [] if width is None else ["--width", str(width), "--channels",
+                                      str(channels)]
+    rec, launches = {"card": card}, {}
+
+    reset_launch_counts()  # the microbench's path starts here
+    step = microbench_step.run(microbench_step.parse_args(
+        [*micro, "--mfu", *dev, *model, "--json",
+         os.path.join(d, "step.json")]), weights,
+        mfu_path=os.path.join(d, "mfu_inference.json"))
+    launches["microbench"] = launch_counts()  # read just after the path
+    _stage_checks("microbench", step["mfu_rows"], device, STEP_KERNEL_CALLS)
+    for r in step["chunk"]:
+        if device.type == "cuda":
+            _finite_positive(f"microbench {r['stage']}", r["ms_per_frame"])
+    rec["microbench"] = step
+
+    reset_launch_counts()  # the cliff tools' path starts here
+    rec["cliff"] = {}
+    for b in cliff_batches:
+        r = cliff_sweep.run(cliff_sweep.parse_args(
+            ["--batch", str(b), "--stages", cliff_stages, "--iters",
+             str(cliff_iters), *dev, *model, "--json",
+             os.path.join(d, f"cliff_b{b}.json")]), weights)
+        _stage_checks(f"cliff B={b}", r["stages"], device,
+                      CLIFF_KERNEL_CALLS)
+        rec["cliff"][b] = r
+    r = cliff_bisect.run(cliff_bisect.parse_args(
+        [*bisect, *dev, *model, "--json", os.path.join(
+            d, f"bisect_b{bisect[bisect.index('--batch') + 1]}.json")]),
+        weights)
+    _stage_checks("bisect", r["chains"], device, BISECT_KERNEL_CALLS)
+    e, f = (next(c["readout"] for c in r["chains"] if c["stage"] == name)
+            for name in ("chain E", "chain F"))
+    check(abs(e - f) <= 2.0 ** -7 * max(abs(e), 1.0),
+          f"bisect: chain F {f} is not chain E {e}")
+    rec["bisect"] = r
+    launches["cliff"] = launch_counts()  # read just after the path
+
+    reset_launch_counts()
+    mem = bench_memops.run(bench_memops.parse_args(
+        [*memops, *dev, "--json", os.path.join(d, "memops.json")]))
+    check(mem["correct"], "memops: the formulations disagree")
+    for row in mem["rows"]:
+        if device.type == "cuda":
+            _finite_positive(f"memops {row['gather']}/{row['write']}",
+                             row["ms_per_frame"])
+    rec["memops"] = mem
+
+    reset_launch_counts()  # the lockstep bench's path starts here
+    lock = bench_lockstep.run(bench_lockstep.parse_args(
+        ["--vot", "--refill", *lockstep, *dev, *model, "--json",
+         os.path.join(d, "lockstep.json")]), weights)
+    launches["lockstep_bench"] = launch_counts()  # read just after
+    failures = lock["args"]["failures"]
+    for rep in lock["vot"]["reps"]:
+        check(rep["restarts"] == failures, f"lockstep VOT: {rep['restarts']}"
+              f" restarts, {failures} forced failures")
+        _finite_positive("lockstep VOT", rep["s"], rep["fps"])
+    ref = lock["refill"]
+    _finite_positive("lockstep refill", ref["refill_s"], ref["padded_s"])
+    check(ref["finite"] and ref["box_gap_px"] <= LOCKSTEP_TOL,
+          f"lockstep: refill and padded boxes {ref['box_gap_px']} px apart")
+    rec["lockstep"] = lock
+
+    if device.type == "cuda":
+        rec["xcorr_7x7"] = xcorr_7x7_check(device)
+        check(all(launches[p]["K1"] > 0 for p in launches)
+              and launches["microbench"]["K3"] > 0,
+              f"step tools: K1/K3 not launched on every path {launches}")
+    rec["battery"] = process_battery.main(["--dir", d, *dev])
+    rec["seconds"] = time.perf_counter() - t0
+    return rec, launches
+
+
 # ------------------------------------------------------------------- main
 
 def ptxas_report(built):
@@ -3960,6 +4135,15 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     ptxas = ptxas_report(built)
 
+    lap_t = [time.perf_counter()]
+
+    def lap(phases):
+        """Print the seconds since the last lap: the script's time limit
+        is shared by every phase."""
+        now = time.perf_counter()
+        print(f"{phases}: {now - lap_t[0]:.1f} s", flush=True)
+        lap_t[0] = now
+
     k1_records = kernel_checks(xcorr_kernel.xcorr_groupdw_cuda,
                                xcorr_groupdw_reference, device)
     single_records = single_checks(
@@ -3967,22 +4151,31 @@ def main() -> int:
          "K3": xcorr_kernel.xcorr_depthwise_pairwise_cuda},
         {"K2": xcorr_depthwise_multi_reference,
          "K3": xcorr_depthwise_pairwise_reference}, device)
+    lap("phases 3-4")
 
     model, results, slice_k1 = run_slice(device, card=card)
     errs = parity_vs_cpu(model, results, device)
+    lap("phase 5")
     tool_records, tool_counts = run_tools()
+    lap("phase 6")
     batch_rec, batch_k1 = run_batch_engine(model, device, card=card)
     scan_rec, scan_k1 = run_scan_engine(model, device, card=card)
+    lap("phases 7-8")
     proto_rec, proto_k1 = run_protocols(model, device, card=card)
+    lap("phase 9")
     bf16_rec, bf16_k1 = run_bf16_engine(model, device, batch_rec, card=card)
     del model
     reset_launch_counts()  # the fixture's path starts here
     fixture_rec = run_fixture(device)
     fixture_k1 = launch_counts()["K1"]  # read just after the path
+    lap("phase 11")
     train_rec, train_launches = run_training(device)
+    lap("phase 10")
     bf16_train_rec, bf16_train_launches = run_training_bf16(
         device, f32_steps=train_rec["steps"])
+    lap("phase 12")
     mining_rec, mining_launches = run_pseudo_labels(device, card=card)
+    lap("phase 13")
     # phase 14: the TraX entry point, the evaluation, the one-key chain
     t14 = time.perf_counter()
     trax_rec, trax_k1 = run_trax(device, card=card)
@@ -4011,10 +4204,16 @@ def main() -> int:
     phase16_s = time.perf_counter() - t16
     print(f"phase 16: {phase16_s:.1f} s", flush=True)
     # phase 17: the measuring entry points, on phase 16's weights
+    weights = kept.pop("weights")
     tools_rec, tools_k1, train_tool_launches = run_measuring_tools(
-        kept.pop("weights"), device, card=card,
+        weights, device, card=card,
         sha256=trained_rec["schedule"]["checkpoint_sha256"])
     print(f"phase 17: {tools_rec['seconds']:.1f} s", flush=True)
+    # phase 18: step attribution and the lockstep benches, same weights
+    step_rec, step_launches = run_step_tools(weights, device, card=card)
+    del weights
+    print(f"phase 18: {step_rec['seconds']:.1f} s", flush=True)
+    step_k1 = {path: n["K1"] for path, n in step_launches.items()}
 
     def pick(records, tag, shape):
         return next(r for r in records
@@ -4024,7 +4223,8 @@ def main() -> int:
                 "scan_engine": scan_k1, "protocols": proto_k1,
                 "batch_engine_bf16": bf16_k1, "fixture_f32_bf16": fixture_k1,
                 "trax": trax_k1, "onekey": onekey_k1, "entry": entry_k1,
-                "sharded": sharded_k1, "trained": trained_k1, **tools_k1}
+                "sharded": sharded_k1, "trained": trained_k1, **tools_k1,
+                **step_k1}
     schedule_launches = trained_rec["schedule"]["kernel_launches"]
     k1_line = kernel_line("K1", pick(
         k1_records, "K1", "engine, instance 255, B=32, M=7, C=256, f32"),
@@ -4058,8 +4258,9 @@ def main() -> int:
                             c["K2"] for c in schedule_launches.values())}),
         kernel_line("K3", pick(single_records, "K3",
                                "B=32, 29x29 / 5x5, C=256, bf16"),
-                    tool_counts["K3"], {
+                    tool_counts["K3"] + step_launches["microbench"]["K3"], {
                         "tools": tool_counts["K3"],
+                        "microbench": step_launches["microbench"]["K3"],
                         "training": train_launches["K3"],
                         "training_bf16": bf16_train_launches["K3"],
                         "preprocessing": mining_launches["K3"],
@@ -4086,7 +4287,7 @@ def main() -> int:
                "sharded_engine": sharded_rec, "data_parallel": dp_rec,
                "nccl_and_dryrun": nccl_rec, "phase15_s": phase15_s,
                "trained_weights": trained_rec, "phase16_s": phase16_s,
-               "measuring_tools": tools_rec,
+               "measuring_tools": tools_rec, "step_tools": step_rec,
                "seconds": time.perf_counter() - t_start}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

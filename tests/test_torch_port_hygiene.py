@@ -142,7 +142,10 @@ def test_no_source_file_names_jax():
                  "ab_card_layers.py", "onekey_synthetic.py",
                  "train_full_schedule.py", "regen_bench_ckpt.py",
                  "accuracy_parity_run.py", "bench.py",
-                 "vot_protocol_bench.py", "bench_train.py"):
+                 "vot_protocol_bench.py", "bench_train.py", "stage_cost.py",
+                 "bench_lockstep.py", "bench_memops.py",
+                 "microbench_step.py", "cliff_sweep.py", "cliff_bisect.py",
+                 "process_battery.py"):
         assert os.path.join(PORT, "tools", tool) in paths
     for path in paths:
         with open(path) as f:
@@ -238,6 +241,25 @@ def test_entry_points_raise_without_a_gpu(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         bench_train.main(["--shards", str(tmp_path / "shards"), "--json",
                           str(tmp_path / "train.json")])
+    assert not any(tmp_path.iterdir())
+    # the step attribution and lockstep tools and the battery's digest,
+    # before they load weights, write or read anything
+    from usot_tpu_torch.tools import (bench_lockstep, bench_memops,
+                                      cliff_bisect, cliff_sweep,
+                                      microbench_step, process_battery)
+
+    none = str(tmp_path / "none.pth")
+    for tool, argv in ((microbench_step, ["--mfu", "--ckpt", none]),
+                       (cliff_sweep, ["--ckpt", none, "--trace",
+                                      str(tmp_path / "trace")]),
+                       (cliff_bisect, ["--ckpt", none]),
+                       (bench_memops, []),
+                       (bench_lockstep, ["--vot", "--refill", "--ckpt",
+                                         none])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tool.main(argv + ["--json", str(tmp_path / "rec.json")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        process_battery.main(["--dir", str(tmp_path)])
     assert not any(tmp_path.iterdir())
 
 

@@ -364,3 +364,164 @@ def jax_pwclite_variables(n_frames=3, reduce_dense=True, h=64, w=96):
         _PWCLITE_VARIABLES[key] = jax.tree_util.tree_map_with_path(draw,
                                                                    shapes)
     return _PWCLITE_VARIABLES[key]
+
+
+# ------------------------------------------------------- step attribution
+#
+# The step tools (`usot_tpu_torch.tools.{microbench_step,cliff_sweep,
+# cliff_bisect}`) against what the JAX tools (`tools/microbench_step.py`,
+# `cliff_sweep.py`, `cliff_bisect.py`) call, on the same numpy inputs
+# (`microbench_step.make_inputs`) and the trained fixture, in float32.
+
+def step_setup(batch, max_frames):
+    """(port model (fused_xcorr=True), port model (fused_xcorr=False),
+    JAX model, JAX variables, numpy inputs, the port's device inputs) at
+    the fixture's widths on the CPU."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from usot_tpu.models.usot import build_usot as jax_build
+    from usot_tpu_torch.models.convert import state_dict_from_flax
+    from usot_tpu_torch.tools import microbench_step as mb
+    from usot_tpu_torch.tools import stage_cost as sc
+
+    kw, v = load_fixture()
+    args = SimpleNamespace(width=kw["width"], channels=kw["channels"])
+    weights = state_dict_from_flax(v)
+    cpu = torch.device("cpu")
+    fused = sc.load_model(args, cpu, "f32", weights)
+    plain = sc.load_model(args, cpu, "f32", weights, fused_xcorr=False)
+    inp = mb.make_inputs(batch, max_frames, kw["channels"])
+    return SimpleNamespace(
+        fused=fused, plain=plain, jm=jax_build(**kw), v=v, inp=inp,
+        t=mb.to_device(inp, torch.float32, cpu))
+
+
+def jax_step_refs(jm, v, inp, p) -> dict:
+    """{port stage name: fn of no arguments returning JAX's outputs} for
+    the stages of `microbench_step` and `cliff_sweep`, each what the JAX
+    tool runs (the full step on `BatchScanEngine(impl="native")`)."""
+    import jax
+    import jax.numpy as jnp
+
+    import usot_tpu.tracker.engine as je
+    from usot_tpu.core.crop import subwindow_jax
+    from usot_tpu.models.head import fold_inference_head
+    from usot_tpu.models.usot import USOTNet
+    from usot_tpu.ops.xcorr import xcorr_depthwise_shift
+
+    b = inp["pos"].shape[0]
+    n_q = inp["queue"].shape[1]
+    j = {k: [jnp.asarray(a) for a in x] if isinstance(x, list)
+         else jnp.asarray(x) for k, x in inp.items()}
+
+    def apply(*a, method):
+        return jm.apply(v, *a, method=method)
+
+    zf_enc = apply(j["zf"], method=USOTNet.encode_template)
+    cls_x, _ = apply(j["xf"], method=lambda m, s: m.connect.encode_search(s))
+    queue_enc = tuple(j["queue_enc"])
+    valid = jnp.ones((b,), bool)
+    feat_enc = tuple(f[:, None] for f in apply(
+        j["feat"], method=USOTNet.encode_memory_kernels))
+
+    def crop():
+        flat = j["frames"].reshape(b, j["frames"].shape[1], -1)
+        return jax.vmap(lambda im, px, py, av, h: subwindow_jax(
+            im, px, py, jnp.float32(255.0), av, p.instance_size,
+            valid_h=h[0], valid_w=h[1], channels=3))(
+            flat, j["pos"][:, 0], j["pos"][:, 1], j["avg"], j["hw"])
+
+    def groupdw():
+        qe = [q.reshape((b * n_q,) + q.shape[2:]) for q in queue_enc]
+        return apply(cls_x, qe, method=lambda m, a, k: m.connect.cls_dw.multi(
+            k, a, n_q))
+
+    def full():
+        engine = je.BatchScanEngine(jm, v, p, j["frames"].shape[1],
+                                    j["frames"].shape[2], batch=b,
+                                    max_frames=inp["mem_conf"].shape[1],
+                                    chunk=8, impl="native")
+        state = je.EngineState(
+            pos=j["pos"], sz=jnp.full((b, 2), 60.0),
+            zf_enc=jax.tree.map(lambda t: t[:, None], zf_enc),
+            init_enc=tuple(j["init_enc"]), mem_enc=tuple(j["mem_enc"]),
+            mem_conf=j["mem_conf"], mem_idx=j["mem_idx"],
+            mem_len=j["mem_len"])
+        flat = j["frames"].reshape(b, j["frames"].shape[1], -1)
+        new, out = engine._frame_step_batched(
+            engine.variables, j["avg"], j["hw"], jnp.zeros((b, 2)), state,
+            flat, valid)
+        return new, out
+
+    def towers(m, a, memory):
+        c = m.connect
+        out = c.cls_pred(c.cls_tower(a, False)) \
+            + c.bbox_pred(c.bbox_tower(a, False))[..., :1]
+        if memory:
+            out = out + c.cls_memory_pred(c.cls_memory_tower(a, False))
+        return out
+
+    return {
+        "crop (u8 frames->255)": crop,
+        "backbone+neck": lambda: apply(j["x_crop"],
+                                       method=USOTNet.search_features),
+        "offline head": lambda: apply(j["xf"], j["zf"],
+                                      method=USOTNet.track_offline),
+        "offline+memory head": lambda: apply(
+            j["xf"], j["zf"], j["queue"], method=USOTNet.track_memory_batched),
+        "ENC offline+memory head": lambda: apply(
+            j["xf"], zf_enc, queue_enc,
+            method=USOTNet.track_memory_encoded_batched),
+        "ENC+FOLDED head": lambda: apply(
+            j["xf"], zf_enc, queue_enc,
+            jax.tree.map(jnp.asarray, fold_inference_head(v)),
+            method=USOTNet.track_memory_encoded_fused),
+        "  encode_search (6 convs)": lambda: apply(
+            j["xf"], method=lambda m, s: m.connect.encode_search(s)),
+        "  groupdw multi (fused)": groupdw,
+        "  conf_fusion (B*M maps)": lambda: apply(
+            j["dw_maps"], method=lambda m, a: m.connect.conf_fusion(a, False)),
+        "  memory tower+pred": lambda: apply(
+            j["fused_map"], method=lambda m, a: m.connect.cls_memory_pred(
+                m.connect.cls_memory_tower(a, False))),
+        "  offline towers+preds": lambda: apply(
+            j["fused_map"], method=lambda m, a: towers(m, a, False)),
+        "towers": lambda: apply(j["fused_map"],
+                                method=lambda m, a: towers(m, a, True)),
+        "xcorr_pair": lambda: apply(
+            list(zf_enc[0]), cls_x,
+            method=lambda m, z, x: m.connect.cls_dw(z, x)),
+        "queue assembly": lambda: jax.vmap(
+            je._assemble_queue_traced, in_axes=(0, 0, 0, 0, 0, None))(
+            j["init_feats"], j["mem_feat"], j["mem_conf"], j["mem_idx"],
+            j["mem_len"], n_q),
+        "memory write": lambda: jax.vmap(je._memory_write)(
+            j["mem_feat"], j["mem_conf"], j["mem_idx"], j["mem_len"],
+            j["feat"][:, None], j["score_b"]),
+        "memory write ENC (scatter)": lambda: jax.vmap(je._memory_write_multi)(
+            tuple(j["mem_enc"]), j["mem_conf"], j["mem_idx"], j["mem_len"],
+            feat_enc, j["score_b"], valid),
+        "memory write ENC (shared)": lambda: je._memory_write_multi_batched(
+            tuple(j["mem_enc"]), j["mem_conf"], j["mem_idx"], j["mem_len"],
+            feat_enc, j["score_b"], valid),
+        "prpool feature": lambda: apply(
+            j["xf"], jnp.tile(jnp.asarray([[2.0, 2.0, 20.0, 20.0]]), (b, 1)),
+            method=USOTNet.pool_memory_feature),
+        "xcorr shift (1 pair 7x7)": lambda: xcorr_depthwise_shift(j["xf"],
+                                                                   j["zf"]),
+        "FULL STEP (native batched)": full,
+    }
+
+
+def leaves(tree):
+    """The array leaves of nested tuples / lists / NamedTuples, in order,
+    as float64 numpy (torch tensors NCHW stay as they are)."""
+    import torch
+
+    if isinstance(tree, (tuple, list)):
+        return [x for t in tree for x in leaves(t)]
+    if isinstance(tree, torch.Tensor):
+        return [tree.detach().double().numpy()]
+    return [np.asarray(tree, np.float64)]

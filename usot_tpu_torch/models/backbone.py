@@ -91,17 +91,20 @@ class ResNetPlus2(nn.Module):
         self.layer3 = _stage(8 * w, 4 * w, LAYERS[2], 1, 2)
 
     def forward(self, x, stem_bn_train: bool = False,
-                stage_bn_train: bool = False, remat: bool = False):
+                stage_bn_train: bool = False, remat: bool = False,
+                n_stages: int = 3):
         """BN modes: stem (conv1/bn1) and stages separately, mirroring the
         staged freeze/unfreeze schedule (ref: scripts/train_usot.py:72-102).
         remat: each bottleneck under `torch.utils.checkpoint`, so backward
         keeps only the blocks' inputs and recomputes one block at a time
         (its train-mode BNs update their running stats again; the
-        training step puts them back)."""
+        training step puts them back). n_stages < 3 stops after the
+        stem and pool (0) or after layer1 or layer2: the prefixes the
+        step attribution times (`tools/microbench_step.py`)."""
         x = to_nchw(x).to(compute_dtype(self.dtype, self.conv1.weight))
         x = F.relu(self.bn1(self.conv1(x), stem_bn_train))
         x = F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
-        for layer in (self.layer1, self.layer2, self.layer3):
+        for layer in (self.layer1, self.layer2, self.layer3)[:n_stages]:
             for block in layer:
                 if remat:
                     x = torch.utils.checkpoint.checkpoint(

@@ -18,8 +18,17 @@ CPU tensor goes to the plain version beside it (`*_reference`, a
 broadcast shift-multiply with f32 accumulation, output in the input
 dtype), a CUDA tensor to the hand-written kernel (`xcorr_kernel.py`),
 which raises on what it does not take. There is no fallback.
+
+`CALL_LISTENERS` hear every call of the three, on any device, with the
+call's analytic operation count (two per multiply-add), its inputs and
+its output's bytes: the step tools (`tools/stage_cost.py`) count a call
+so, since `FlopCounterMode` and a dispatch mode see aten ops and not the
+kernels (nor, usefully, the plain versions' shift loops).
 """
 from __future__ import annotations
+
+import contextlib
+import math
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +37,27 @@ from usot_tpu_torch.ops.xcorr_kernel import (groupdw_out_hw,
                                              xcorr_depthwise_multi_cuda,
                                              xcorr_depthwise_pairwise_cuda,
                                              xcorr_groupdw_cuda)
+
+# Context-manager factories, entered around every call of
+# `xcorr_groupdw` ("K1"), `xcorr_depthwise_multi` ("K2") and
+# `xcorr_depthwise_pairwise` ("K3") as fn(tag, flops, inputs, out_bytes):
+# the call's analytic operations (two per multiply-add), its input
+# tensors and the bytes of its output
+CALL_LISTENERS: list = []
+
+
+def _dispatch(tag, route, args, out_shape, taps):
+    """route(*args), inside every listener's context; `out_shape` is a
+    function of no arguments, called only when there are listeners."""
+    if not CALL_LISTENERS:
+        return route(*args)
+    inputs = [t for a in args for t in (a if isinstance(a, list) else [a])]
+    n = math.prod(out_shape())
+    with contextlib.ExitStack() as stack:
+        for fn in CALL_LISTENERS:
+            stack.enter_context(fn(tag, 2.0 * taps * n, inputs,
+                                   n * inputs[0].element_size()))
+        return route(*args)
 
 
 def xcorr_depthwise(x, kernel):
@@ -87,22 +117,35 @@ def xcorr_depthwise_pairwise_reference(x, kernel):
     return xcorr_depthwise_multi_reference(x, kernel[:, None])[:, 0]
 
 
+def _single_out(x, kernel):
+    """(B, Ho, Wo, C) of a single-scale VALID correlation."""
+    return (x.shape[0], x.shape[1] - kernel.shape[-3] + 1,
+            x.shape[2] - kernel.shape[-2] + 1, x.shape[3])
+
+
 def xcorr_groupdw(xs, ks):
     """K1 on the device the tensors lie on (see the module note)."""
-    if xs[0].device.type == "cpu":
-        return xcorr_groupdw_reference(xs, ks)
-    return xcorr_groupdw_cuda(xs, ks)
+    route = xcorr_groupdw_reference if xs[0].device.type == "cpu" \
+        else xcorr_groupdw_cuda
+    return _dispatch(
+        "K1", route, (list(xs), list(ks)),
+        lambda: tuple(ks[0].shape[:2]) + groupdw_out_hw(xs, ks)
+        + (ks[0].shape[4],), sum(k.shape[2] * k.shape[3] for k in ks))
 
 
 def xcorr_depthwise_multi(x, kernel):
     """K2 on the device the tensors lie on (see the module note)."""
-    if x.device.type == "cpu":
-        return xcorr_depthwise_multi_reference(x, kernel)
-    return xcorr_depthwise_multi_cuda(x, kernel)
+    route = xcorr_depthwise_multi_reference if x.device.type == "cpu" \
+        else xcorr_depthwise_multi_cuda
+    return _dispatch("K2", route, (x, kernel),
+                     lambda: _single_out(x, kernel) + (kernel.shape[1],),
+                     kernel.shape[2] * kernel.shape[3])
 
 
 def xcorr_depthwise_pairwise(x, kernel):
     """K3 on the device the tensors lie on (see the module note)."""
-    if x.device.type == "cpu":
-        return xcorr_depthwise_pairwise_reference(x, kernel)
-    return xcorr_depthwise_pairwise_cuda(x, kernel)
+    route = xcorr_depthwise_pairwise_reference if x.device.type == "cpu" \
+        else xcorr_depthwise_pairwise_cuda
+    return _dispatch("K3", route, (x, kernel),
+                     lambda: _single_out(x, kernel),
+                     kernel.shape[1] * kernel.shape[2])

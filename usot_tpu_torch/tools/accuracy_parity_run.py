@@ -4,7 +4,7 @@ CLI, its result files and the OPE evaluation. The port's counterpart of
 the repo's `tools/accuracy_parity_run.py`.
 
     python -m usot_tpu_torch.tools.accuracy_parity_run [--videos 6]
-        [--frames 40] [--ckpt <.pth>] [--device cpu]
+        [--frames 40] [--ckpt <.pth>] [--device cpu] [--json PATH]
 
 The benchmark is the repo tool's (the same draws in the same order:
 `default_rng(7)`, `--videos` videos of `--frames` frames at 360x360, a
@@ -104,6 +104,8 @@ def parse_args(argv=None):
                     help="the memory queue's length (the test CLI's)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU)")
+    ap.add_argument("--json", default=None,
+                    help="write the returned record to this path")
     return ap.parse_args(argv)
 
 
@@ -148,7 +150,12 @@ def run(args):
 
 
 def main(argv=None):
-    print(json.dumps(run(parse_args(argv))), flush=True)
+    args = parse_args(argv)
+    rec = run(args)
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump(rec, f, indent=1)
+    print(json.dumps(rec), flush=True)
 
 
 if __name__ == "__main__":

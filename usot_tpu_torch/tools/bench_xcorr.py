@@ -8,9 +8,11 @@ Shapes: offline head (B, 29, 29, C) x (B, 5, 5, C); memory head
 
     python -m usot_tpu_torch.tools.bench_xcorr [--batch 32] [--iters 30]
                                                [--dtype bf16|f32]
+                                               [--json PATH]
 
 Prints one line per route (device ms per call from CUDA events over
-CUDA-graph replays) and, last, a JSON list of the records. Needs a GPU.
+CUDA-graph replays) and, last, a JSON list of the records (`--json PATH`
+writes them with the card's line). Needs a GPU.
 """
 from __future__ import annotations
 
@@ -78,14 +80,22 @@ def main(argv=None) -> list:
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--iters", type=int, default=30)
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="bf16")
+    ap.add_argument("--json", default=None,
+                    help="write the records, with the card, to this path")
     args = ap.parse_args(argv)
     device = resolve_device(None)
     f32_numerics()
-    print(f"{torch.cuda.get_device_name(device)}; {card_line()}; "
+    card = card_line()
+    print(f"{torch.cuda.get_device_name(device)}; {card}; "
           f"dtype {args.dtype}", flush=True)
     records = run(stages(args.batch, DTYPES[args.dtype], device),
                   args.iters)
     print(json.dumps(records), flush=True)
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump({"tool": "bench_xcorr", "card": card,
+                       "batch": args.batch, "dtype": args.dtype,
+                       "records": records}, f, indent=1)
     return records
 
 

@@ -134,14 +134,22 @@ def _memory_write_multi_batched(rings, mem_conf, mem_idx, mem_len, feats,
     write_idx = _write_slot(mem_conf, mem_idx, mem_len, s)          # (B,)
     ring_idx = write_idx if valid is None \
         else torch.where(valid, write_idx, s)
-    lanes = torch.arange(b, device=mem_conf.device)
+    _scatter_slots(rings, feats, ring_idx)
+    mem_conf = mem_conf.scatter(1, write_idx[:, None], score[:, None])
+    mem_idx = mem_idx.scatter(1, write_idx[:, None], mem_len[:, None])
+    return rings, mem_conf, mem_idx, mem_len + 1
+
+
+def _scatter_slots(rings, feats, ring_idx):
+    """Write lane b's feats[i][b, 0] into slot ring_idx[b] of rings[i]
+    (B, S', h, w, C), in place: one `index_copy_` per ring over the
+    lanes' flattened slots."""
+    b = ring_idx.shape[0]
+    lanes = torch.arange(b, device=ring_idx.device)
     for r, f in zip(rings, feats):
         flat = r.view((b * r.shape[1],) + tuple(r.shape[2:]))
         flat.index_copy_(0, lanes * r.shape[1] + ring_idx,
                          f[:, 0].to(r.dtype))
-    mem_conf = mem_conf.scatter(1, write_idx[:, None], score[:, None])
-    mem_idx = mem_idx.scatter(1, write_idx[:, None], mem_len[:, None])
-    return rings, mem_conf, mem_idx, mem_len + 1
 
 
 def _memory_write_multi(rings, mem_conf, mem_idx, mem_len, feats, score,
@@ -322,6 +330,17 @@ def _postprocess_traced(p, c, pos, sz, scale_z, cls, bbox, cls_mem):
 
 # -------------------------------------------------------------- engines
 
+def folded_head(model: USOTNet) -> dict:
+    """`fold_inference_head`'s weights of `model`'s head, folded in
+    float32 and cast once to its compute dtype: the `fused` argument of
+    `USOTNet.track_memory_encoded_fused`."""
+    dtype = model.dtype
+    folded = fold_inference_head(model.connect_model)
+    return {"encoders": [(w.to(dtype), b.to(dtype))
+                         for w, b in folded["encoders"]],
+            "conf_value": tuple(t.to(dtype) for t in folded["conf_value"])}
+
+
 def _lift(state: EngineState) -> EngineState:
     """One video's carry as a batch of one (views, no copies)."""
     return EngineState(
@@ -362,14 +381,7 @@ class ScanEngine:
         self.im_h, self.im_w = im_h, im_w
         self.max_frames = max_frames
         self.chunk = chunk
-        self.fused = None
-        if fused_head:
-            folded = fold_inference_head(model.connect_model)
-            self.fused = {
-                "encoders": [(w.to(self.dtype), b.to(self.dtype))
-                             for w, b in folded["encoders"]],
-                "conf_value": tuple(t.to(self.dtype)
-                                    for t in folded["conf_value"])}
+        self.fused = folded_head(model) if fused_head else None
         self._consts = make_consts(p, self.device)
         # the frame buffer's image-coordinate origin: (0, 0) for full
         # frames (ROI streaming passes its windows' origins)

@@ -92,7 +92,7 @@ def stage_vot_blocks(engine, canvases):
 
 
 def run_vot_group(engine, runner, canvases, hws, gts, stage: bool = False,
-                  stats: dict = None):
+                  stats: dict = None, staged_blocks: dict = None):
     """Track one lockstep group of VOT videos with the restart protocol.
 
     engine: `BatchScanEngine` with batch == len(canvases).
@@ -104,7 +104,10 @@ def run_vot_group(engine, runner, canvases, hws, gts, stage: bool = False,
     the engine's search size is SPILLED (`spill_from`) for the caller to
     finish on a scan engine of that size.
     stage=True uploads every chunk's block before the protocol loop
-    (`stage_vot_blocks`); a replay reuses its chunk's block either way.
+    (`stage_vot_blocks`); `staged_blocks` passes in blocks the caller
+    staged once, so repeated runs do not upload again (the results are
+    bitwise those of stage=True); a replay reuses its chunk's block
+    either way.
     stats: optional dict that receives the counts "chunks" (chunk runs,
     replays included) and "replays".
 
@@ -162,7 +165,9 @@ def run_vot_group(engine, runner, canvases, hws, gts, stage: bool = False,
         resume[v] = r + 1
         return st, True
 
-    staged = stage_vot_blocks(engine, canvases) if stage else None
+    staged = staged_blocks
+    if staged is None and stage:
+        staged = stage_vot_blocks(engine, canvases)
 
     for cs in range(1, max_n, chunk):
         ce = min(cs + chunk, max_n)
