@@ -406,6 +406,18 @@ def test_nan_gate(phase, which):
     assert moved > 0
 
 
+def test_skipped_counts_the_gated_steps(phase):
+    """`step.skipped` after each step is the running count of the JAX
+    run's steps on the same batches whose loss fails the gate (not finite
+    or >= 1e4): the frozen phase's third and fourth batches."""
+    gated = [not (np.isfinite(r["metrics"]["loss"])
+                  and r["metrics"]["loss"] < 1e4) for r in phase["jax"]]
+    want = np.cumsum(gated).tolist()
+    assert len(phase["port"]) == len(phase["jax"])
+    assert [r["skipped"] for r in phase["port"]] == want
+    assert want[-1] == (0 if phase["unfix"] else 2)
+
+
 def test_accum_matches_jax():
     """accum=2 on a B=2 batch (two microbatches of 1, BN stats threaded
     through them) against JAX's `accum_steps=2`: losses 1e-5 relative

@@ -190,8 +190,9 @@ def port_model(variables, dtype=None, compute=None):
 def port_train_run(variables, cycle, unfix, batches, accum=1, remat=False,
                    seen=None, dtype=None, compute=None):
     """The port's steps of one phase over `batches`, as `jax_train_run`
-    records them, plus "grads" (`.grad` after the step); also returns the
-    parameter labels. dtype / compute: as `port_model`'s."""
+    records them, plus "grads" (`.grad` after the step) and "skipped"
+    (`step.skipped` after it); also returns the parameter labels.
+    dtype / compute: as `port_model`'s."""
     import pytest
     import torch
 
@@ -227,6 +228,7 @@ def port_train_run(variables, cycle, unfix, batches, accum=1, remat=False,
                 "momentum": {n: opt.state[p]["momentum_buffer"].numpy()
                              .copy() for n, p in model.named_parameters()
                              if p in opt.state},
+                "skipped": step.skipped,
             })
     return out, labels
 

@@ -311,11 +311,13 @@ def _train(cfg, args, device, reader, group=None):
             if (it + 1) % cfg.PRINT_FREQ == 0:
                 logger.info(
                     "Epoch: [%d][%d/%d] lr: %.6f Batch Time: %.3fs "
-                    "CLS_ORI: %.5f CLS_MEM: %.5f REG: %.5f Loss: %.5f",
+                    "CLS_ORI: %.5f CLS_MEM: %.5f REG: %.5f Loss: %.5f "
+                    "Skipped: %d",
                     epoch, it + 1, len(loader), lr, batch_time.avg,
                     float(metrics["cls_loss_ori"]),
                     float(metrics["cls_loss_memory"]),
-                    float(metrics["reg_loss"]), losses.avg)
+                    float(metrics["reg_loss"]), losses.avg,
+                    step_fn.skipped)
                 print_speed(global_step, batch_time.avg,
                             tc.END_EPOCH * len(loader), logger)
 

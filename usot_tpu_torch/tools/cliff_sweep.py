@@ -26,9 +26,10 @@ cls and bbox towers and the memory tower with their preds), backbone
 (`stage_cost.readout`), as the JAX tool insists (`:9-16`).
 
 `--hlo DIR` has no PyTorch counterpart; `--trace DIR` writes one
-`torch.profiler` Chrome trace per stage (`<stage>_B<batch>.json`, the
-graph-free eager calls). Inputs as `microbench_step`'s (the engine's
-31x31 search feature). Runs on the GPU unless `--device cpu` is given.
+`torch.profiler` Chrome trace per stage (`<stage>_B<batch>/trace.json`,
+`utils.profiling.trace` over two graph-free eager calls). Inputs as
+`microbench_step`'s (the engine's 31x31 search feature). Runs on the GPU
+unless `--device cpu` is given.
 """
 from __future__ import annotations
 
@@ -39,6 +40,7 @@ import torch
 
 from usot_tpu_torch.tools import microbench_step as mb
 from usot_tpu_torch.tools import stage_cost as sc
+from usot_tpu_torch.utils import profiling
 
 ALL_STAGES = ("full", "memhead", "enc_search", "xcorr_pair", "groupdw",
               "conf", "towers", "backbone")
@@ -82,19 +84,6 @@ def stage_fns(model, engine, t: dict) -> dict:
     }
 
 
-def trace(fn, path: str, device):
-    """A `torch.profiler` Chrome trace of two eager calls of `fn`."""
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if device.type == "cuda":
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(2):
-            fn()
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-    prof.export_chrome_trace(path)
-
-
 def line(b: int, r: dict) -> str:
     ms = sc.fmt(r["device_ms"])
     return (f"B={b} {r['stage']:12s} {ms:>12s} ms/iter (eager "
@@ -131,10 +120,13 @@ def run(args, weights=None) -> dict:
             r = sc.measure(name, fns[name], device, args.dtype, args.iters,
                            b)
             if args.trace:
-                os.makedirs(args.trace, exist_ok=True)
-                r["trace"] = os.path.join(args.trace, f"{name}_B{b}.json")
-                trace(lambda fn=fns[name]: sc.readout(fn()), r["trace"],
-                      device)
+                log_dir = os.path.join(args.trace, f"{name}_B{b}")
+                with profiling.trace(log_dir):
+                    for _ in range(2):
+                        sc.readout(fns[name]())
+                    if device.type == "cuda":
+                        torch.cuda.synchronize(device)
+                r["trace"] = os.path.join(log_dir, "trace.json")
             print(line(b, r), flush=True)
             rec["stages"].append(r)
     sc.write_json(args.json, rec)

@@ -50,6 +50,7 @@ from usot_tpu_torch.parallel.mesh import replicate_tree, shard_batch
 from usot_tpu_torch.tracker.config import TrackerConfig
 from usot_tpu_torch.tracker.postprocess import hanning_window
 from usot_tpu_torch.tracker.tracker import _clip_number, _flip_lr
+from usot_tpu_torch.utils.profiling import span
 
 # px of slack around each crop window the ROI exactness check demands
 _ROI_MARGIN = 2.0
@@ -386,6 +387,9 @@ class ScanEngine:
         # the frame buffer's image-coordinate origin: (0, 0) for full
         # frames (ROI streaming passes its windows' origins)
         self._origin0 = torch.zeros((1, 2), device=self.device)
+        # `BatchScanEngine.init_batch` calls so far: the round ordinal
+        # the spans carry
+        self.rounds = 0
 
     # ---- one frame step, B lanes ----
 
@@ -444,26 +448,32 @@ class ScanEngine:
         Returns (new carry, (pos (B, 2), sz (B, 2), score (B,)))."""
         p = self.p
         model = self.model
-        scale_z, xf = self._search(carry, frames, avg_b, im_hw_b,
-                                   origin_b)
-        cls, bbox, cls_mem = self._heads(carry, xf)
-        new_pos, new_sz, best_score, pool_bbox = _postprocess_traced(
-            p, self._consts, carry.pos, carry.sz, scale_z, cls, bbox,
-            cls_mem)
-        feat = model.pool_memory_feature(xf, pool_bbox)      # (B, 7, 7, C)
-        feat_enc = tuple(f[:, None] for f in
-                         model.encode_memory_kernels(feat))  # (B,1,h,w,C)
-        mem_enc, mem_conf, mem_idx, mem_len = _memory_write_multi_batched(
-            carry.mem_enc, carry.mem_conf, carry.mem_idx, carry.mem_len,
-            feat_enc, best_score, is_valid)
-
-        im_h, im_w = im_hw_b[:, 0], im_hw_b[:, 1]
-        new_pos = torch.stack(
-            [torch.minimum(torch.clamp(new_pos[:, 0], min=0.0), im_w),
-             torch.minimum(torch.clamp(new_pos[:, 1], min=0.0), im_h)], -1)
-        new_sz = torch.stack(
-            [torch.minimum(torch.clamp(new_sz[:, 0], min=10.0), im_w),
-             torch.minimum(torch.clamp(new_sz[:, 1], min=10.0), im_h)], -1)
+        with span("engine.search"):
+            scale_z, xf = self._search(carry, frames, avg_b, im_hw_b,
+                                       origin_b)
+        with span("engine.heads"):
+            cls, bbox, cls_mem = self._heads(carry, xf)
+        with span("engine.post"):
+            new_pos, new_sz, best_score, pool_bbox = _postprocess_traced(
+                p, self._consts, carry.pos, carry.sz, scale_z, cls, bbox,
+                cls_mem)
+            im_h, im_w = im_hw_b[:, 0], im_hw_b[:, 1]
+            new_pos = torch.stack(
+                [torch.minimum(torch.clamp(new_pos[:, 0], min=0.0), im_w),
+                 torch.minimum(torch.clamp(new_pos[:, 1], min=0.0), im_h)],
+                -1)
+            new_sz = torch.stack(
+                [torch.minimum(torch.clamp(new_sz[:, 0], min=10.0), im_w),
+                 torch.minimum(torch.clamp(new_sz[:, 1], min=10.0), im_h)],
+                -1)
+        with span("engine.memory"):
+            feat = model.pool_memory_feature(xf, pool_bbox)  # (B, 7, 7, C)
+            feat_enc = tuple(f[:, None] for f in
+                             model.encode_memory_kernels(feat))
+            mem_enc, mem_conf, mem_idx, mem_len = \
+                _memory_write_multi_batched(
+                    carry.mem_enc, carry.mem_conf, carry.mem_idx,
+                    carry.mem_len, feat_enc, best_score, is_valid)
         new_carry = EngineState(new_pos, new_sz, carry.zf_enc,
                                 carry.init_enc, mem_enc, mem_conf, mem_idx,
                                 mem_len)
@@ -479,9 +489,10 @@ class ScanEngine:
         outputs on the device."""
         outs = []
         for t in range(frames.shape[0]):
-            new, out = self._frame_step_batched(carry, frames[t], valid[t],
-                                                avg_b, im_hw_b, origin_b)
-            carry = _freeze_invalid(new, carry, valid[t])
+            with span("engine.step", self.rounds):
+                new, out = self._frame_step_batched(
+                    carry, frames[t], valid[t], avg_b, im_hw_b, origin_b)
+                carry = _freeze_invalid(new, carry, valid[t])
             outs.append(out)
         return carry, tuple(torch.stack(o) for o in zip(*outs))
 
@@ -695,8 +706,20 @@ class BatchScanEngine(ScanEngine):
         """videos: list of (first_frame, target_pos, target_sz). Host
         crops per video, then the model passes batched across the group:
         the template for B videos, the memory bootstrap for 2B crops."""
-        hosts = [self._init_host(im, pos, sz) for im, pos, sz in videos]
-        hws = [[im.shape[0], im.shape[1]] for im, _, _ in videos]
+        self.rounds += 1
+        for sh in self._shards or ():
+            sh.rounds = self.rounds
+        with span("engine.init_batch", self.rounds):
+            with span("engine.init_host"):
+                hosts = [self._init_host(im, pos, sz)
+                         for im, pos, sz in videos]
+            return self._init_lanes(
+                hosts, [[im.shape[0], im.shape[1]] for im, _, _ in videos],
+                runner)
+
+    def _init_lanes(self, hosts, hws, runner) -> EngineState:
+        """`init_batch`'s device part, from the lanes' host crops and
+        their images' (h, w)."""
         b = len(hosts)
         if b != self.batch:
             raise ValueError(f"{b} videos for a batch of {self.batch}")
@@ -800,13 +823,13 @@ class BatchScanEngine(ScanEngine):
         return self._chunk(state, block, valid, self._avg_b, self._im_hw_b,
                            origin_b)
 
-    @staticmethod
-    def _collate(pending):
+    def _collate(self, pending):
         """[(nb, (pos (T,B,2), sz, score)), ...] -> numpy (pos (B,N,2),
         sz (B,N,2), score (B,N)): the one copy to the host per call."""
-        pos, sz, score = (np.concatenate([o[k][:nb].cpu().numpy()
-                                          for nb, o in pending])
-                          for k in range(3))
+        with span("engine.collate", self.rounds):
+            pos, sz, score = (np.concatenate([o[k][:nb].cpu().numpy()
+                                              for nb, o in pending])
+                              for k in range(3))
         return pos.transpose(1, 0, 2), sz.transpose(1, 0, 2), score.T
 
     def track_batch(self, state: EngineState, frames_u8: np.ndarray,

@@ -21,6 +21,7 @@ import torch.distributed as dist
 from usot_tpu_torch.models.layers import BatchNorm
 from usot_tpu_torch.parallel.mesh import world_size
 from usot_tpu_torch.train.optim import set_lr
+from usot_tpu_torch.utils.profiling import span
 
 
 def epoch_weights(cfg_train, epoch: int):
@@ -117,7 +118,8 @@ def make_train_step(model, optimizer, cycle_memory: bool,
     The NaN/explosion gate: when the loss is not finite or is >= 1e4,
     params and momentum stay as they were (no `optimizer.step()`); the
     BN running stats keep this step's update, as JAX returns its new
-    stats either way. Reading the gate is one host sync per step.
+    stats either way. Reading the gate is one host sync per step;
+    `step.skipped` counts the steps it refused.
     Every parameter in the optimizer gets a gradient each step, zero where
     the phase does not reach it (the memory head in the naive phase), so
     weight decay and momentum move it as optax moves it.
@@ -172,30 +174,39 @@ def make_train_step(model, optimizer, cycle_memory: bool,
 
     def grads_of(batch, cls_ratio):
         """Backward of one (micro)batch; grads add into `.grad`."""
-        out = loss_fn(batch, cls_ratio)
-        if not remat:
+        with span("train.forward"):
+            out = loss_fn(batch, cls_ratio)
+        kept = [t.clone() for t in stats] if remat else ()
+        with span("train.backward"):
             out[0].backward()
-            return out
-        kept = [t.clone() for t in stats]
-        out[0].backward()
         with torch.no_grad():
             for t, k in zip(stats, kept):
                 t.copy_(k)
         return out
 
+    calls = 0
+
     def step(batch, lr, cls_ratio):
-        with set_bn_group(model, group if sync_bn else None):
-            out = [t.detach() for t in local_grads(batch, cls_ratio)]
-        if group is not None:
-            _all_reduce_grads(trainable, group)
-            flat = torch.stack([t.float() for t in out])  # one all-reduce
-            dist.all_reduce(flat, group=group)
-            out = list(flat / world_size(group))
-        loss = out[0]
-        # is_valid_number gate (ref: train_utils.py:8-9)
-        if bool(torch.isfinite(loss) & (loss < 1e4)):
-            set_lr(optimizer, float(lr))
-            optimizer.step()
+        nonlocal calls
+        calls += 1
+        with span("train.step", calls):
+            with set_bn_group(model, group if sync_bn else None):
+                out = [t.detach() for t in local_grads(batch, cls_ratio)]
+            if group is not None:
+                _all_reduce_grads(trainable, group)
+                flat = torch.stack([t.float() for t in out])  # one all-reduce
+                dist.all_reduce(flat, group=group)
+                out = list(flat / world_size(group))
+            loss = out[0]
+            # is_valid_number gate (ref: train_utils.py:8-9)
+            with span("train.gate"):
+                valid = bool(torch.isfinite(loss) & (loss < 1e4))
+            if valid:
+                with span("train.update"):
+                    set_lr(optimizer, float(lr))
+                    optimizer.step()
+            else:
+                step.skipped += 1
         return {"cls_loss_ori": out[1], "cls_loss_memory": out[2],
                 "reg_loss": out[3], "loss": loss}
 
@@ -226,4 +237,5 @@ def make_train_step(model, optimizer, cycle_memory: bool,
             out = [t * inv for t in total]
         return out
 
+    step.skipped = 0    # steps whose update the gate refused
     return step
