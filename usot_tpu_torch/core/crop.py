@@ -1,11 +1,14 @@
 """SiamFC-style subwindow crops (ref: lib/utils/track_utils.py:30-119).
 
-`get_subwindow` is the host crop of the parity tracker and of engine
-init. Same padding and geometry as `usot_tpu.core.crop.get_subwindow`,
-without OpenCV: the resize is half-pixel-centre, edge-clamped bilinear
-(`F.interpolate(mode="bilinear", align_corners=False)`, what
-`cv2.resize`'s INTER_LINEAR computes in fixed point), rounded to uint8.
-Against `cv2.resize` it differs by at most one grey level per pixel.
+`get_subwindow` is the host crop of the parity tracker and of the
+engines' single-video init. Same padding and geometry as
+`usot_tpu.core.crop.get_subwindow`, without OpenCV: the resize is
+half-pixel-centre, edge-clamped bilinear (`F.interpolate(mode="bilinear",
+align_corners=False)`, what `cv2.resize`'s INTER_LINEAR computes in fixed
+point), rounded to uint8. Against `cv2.resize` it differs by at most one
+grey level per pixel. Its geometry is `subwindow_geometry`;
+`crop_windows` makes its pixels for a batch of lanes on the device (the
+batch engine's init).
 
 `subwindow_gather` is the engines' device crop and `subwindow_matmul`
 its matmul formulation (`usot_tpu/core/crop.py:109-255`; JAX picks the
@@ -21,66 +24,61 @@ import torch
 import torch.nn.functional as F
 
 
+def _resize(win: torch.Tensor, size: int) -> torch.Tensor:
+    """(h, w, C) f32 -> (size, size, C) f32, bilinear, no antialias, not
+    rounded. The input is laid out (h, w, C), so the (1, C, h, w) view
+    is channels-last: the host and the device crops take one CPU kernel.
+    (That kernel's summation order depends on the thread count, so this
+    call, and no formula written out beside it, is what keeps them
+    bitwise equal.)"""
+    out = F.interpolate(win.permute(2, 0, 1)[None], size=(size, size),
+                        mode="bilinear", align_corners=False, antialias=False)
+    return out[0].permute(1, 2, 0)
+
+
+def _grey(x: torch.Tensor) -> torch.Tensor:
+    """Round to whole grey levels, as a uint8 image holds them."""
+    return torch.floor(x + 0.5).clamp_(0, 255)
+
+
 def resize_bilinear_uint8(patch: np.ndarray, size: int) -> np.ndarray:
     """(H, W, C) uint8 -> (size, size, C) uint8, bilinear, no antialias."""
-    t = torch.from_numpy(np.ascontiguousarray(patch)).permute(2, 0, 1)
-    t = t[None].to(torch.float32)
-    out = F.interpolate(t, size=(size, size), mode="bilinear",
-                        align_corners=False, antialias=False)
-    out = torch.floor(out[0].permute(1, 2, 0) + 0.5).clamp_(0, 255)
-    return out.to(torch.uint8).numpy()
+    win = torch.from_numpy(np.ascontiguousarray(patch)).to(torch.float32)
+    return _grey(_resize(win, size)).to(torch.uint8).numpy()
 
 
-def get_subwindow(im, pos, model_sz, original_sz, avg_chans, target_sz=None,
-                  need_bbox=False):
-    """Crop a square `original_sz` window centred at `pos`, pad with
-    avg_chans where the window leaves the image, resize to `model_sz`.
+def subwindow_geometry(im_shape, pos, model_sz, original_sz, target_sz=None,
+                       need_bbox=False):
+    """The scalar part of `get_subwindow` (same arguments, the image's
+    shape for the image): Python's rounding in float64, no pixels.
 
-    Returns (patch_hwc_uint8, crop_info dict)."""
+    Returns (crop_info, window): `get_subwindow`'s crop_info, and
+    window = (x0, y0, side), the integer top-left of the square window in
+    image coordinates and its side: rows y0 .. y0 + side - 1, columns
+    x0 .. x0 + side - 1, the average colour wherever that leaves the
+    image."""
     crop_info = {}
     if isinstance(pos, float):
         pos = [pos, pos]
 
     sz = original_sz
-    im_sz = im.shape
     c = (original_sz + 1) / 2
     context_xmin = round(pos[0] - c)
     context_xmax = context_xmin + sz - 1
     context_ymin = round(pos[1] - c)
     context_ymax = context_ymin + sz - 1
+    r, cc = im_shape[0], im_shape[1]
     left_pad = int(max(0.0, -context_xmin))
     top_pad = int(max(0.0, -context_ymin))
-    right_pad = int(max(0.0, context_xmax - im_sz[1] + 1))
-    bottom_pad = int(max(0.0, context_ymax - im_sz[0] + 1))
+    right_pad = int(max(0.0, context_xmax - cc + 1))
+    bottom_pad = int(max(0.0, context_ymax - r + 1))
+    patch_sz = int(context_ymax + 1) - int(context_ymin)
+    window = (int(context_xmin), int(context_ymin), patch_sz)
 
     context_xmin += left_pad
     context_xmax += left_pad
     context_ymin += top_pad
     context_ymax += top_pad
-
-    r, cc, k = im.shape
-    if any([top_pad, bottom_pad, left_pad, right_pad]):
-        te_im = np.zeros((r + top_pad + bottom_pad,
-                          cc + left_pad + right_pad, k), np.uint8)
-        te_im[top_pad:top_pad + r, left_pad:left_pad + cc, :] = im
-        if top_pad:
-            te_im[0:top_pad, left_pad:left_pad + cc, :] = avg_chans
-        if bottom_pad:
-            te_im[r + top_pad:, left_pad:left_pad + cc, :] = avg_chans
-        if left_pad:
-            te_im[:, 0:left_pad, :] = avg_chans
-        if right_pad:
-            te_im[:, cc + left_pad:, :] = avg_chans
-        im_patch_original = te_im[int(context_ymin):int(context_ymax + 1),
-                                  int(context_xmin):int(context_xmax + 1), :]
-    else:
-        im_patch_original = im[int(context_ymin):int(context_ymax + 1),
-                               int(context_xmin):int(context_xmax + 1), :]
-
-    if not np.array_equal(model_sz, original_sz):
-        im_patch = resize_bilinear_uint8(im_patch_original, model_sz)
-    else:
-        im_patch = im_patch_original
 
     if target_sz is not None:
         target_xmin = round(pos[0] - target_sz[0] / 2)
@@ -90,7 +88,6 @@ def get_subwindow(im, pos, model_sz, original_sz, avg_chans, target_sz=None,
         crop_info["original_image_bbox"] = [target_xmin, target_ymin,
                                             target_xmax, target_ymax]
         if need_bbox:
-            patch_sz = im_patch_original.shape[0]
             x_slope = patch_sz / (context_xmax - context_xmin)
             y_slope = patch_sz / (context_ymax - context_ymin)
             target_xmin_after = left_pad - 1 + x_slope * (target_xmin
@@ -101,7 +98,8 @@ def get_subwindow(im, pos, model_sz, original_sz, avg_chans, target_sz=None,
                                                          - context_ymin)
             target_ymax_after = top_pad - 1 + y_slope * (target_ymax
                                                          - context_ymin)
-            scale_resize = im_patch.shape[0] / patch_sz
+            resized = not np.array_equal(model_sz, original_sz)
+            scale_resize = (model_sz if resized else patch_sz) / patch_sz
             crop_info["template_bbox"] = [
                 scale_resize * target_xmin_after,
                 scale_resize * target_ymin_after,
@@ -112,7 +110,62 @@ def get_subwindow(im, pos, model_sz, original_sz, avg_chans, target_sz=None,
     crop_info["crop_cords"] = [context_xmin, context_xmax, context_ymin,
                                context_ymax]
     crop_info["pad_info"] = [top_pad, left_pad, r, cc]
+    return crop_info, window
+
+
+def _clip_window(window, h: int, w: int):
+    """The part of `window` inside an (h, w) image: (ya, yb, xa, xb),
+    empty where ya >= yb or xa >= xb."""
+    x0, y0, side = window
+    return max(y0, 0), min(y0 + side, h), max(x0, 0), min(x0 + side, w)
+
+
+def get_subwindow(im, pos, model_sz, original_sz, avg_chans, target_sz=None,
+                  need_bbox=False):
+    """Crop a square `original_sz` window centred at `pos`, pad with
+    avg_chans where the window leaves the image, resize to `model_sz`.
+
+    Returns (patch_hwc_uint8, crop_info dict)."""
+    crop_info, window = subwindow_geometry(im.shape, pos, model_sz,
+                                           original_sz, target_sz, need_bbox)
+    x0, y0, side = window
+    ya, yb, xa, xb = _clip_window(window, im.shape[0], im.shape[1])
+    if (ya, yb, xa, xb) == (y0, y0 + side, x0, x0 + side):
+        im_patch_original = im[ya:yb, xa:xb, :]
+    else:
+        # the pad holds avg_chans cast to uint8 (truncated)
+        im_patch_original = np.empty((side, side, im.shape[2]), np.uint8)
+        im_patch_original[:] = avg_chans
+        if ya < yb and xa < xb:
+            im_patch_original[ya - y0:yb - y0, xa - x0:xb - x0] = \
+                im[ya:yb, xa:xb]
+
+    if not np.array_equal(model_sz, original_sz):
+        im_patch = resize_bilinear_uint8(im_patch_original, model_sz)
+    else:
+        im_patch = im_patch_original
     return im_patch, crop_info
+
+
+def crop_windows(frames, hw, fill, windows, model_sz: int):
+    """`get_subwindow`'s pixels for B lanes at once, on the frames'
+    device: lane b crops `windows[b]` ((x0, y0, side), from
+    `subwindow_geometry`) out of frames[b], a (B, H, W, C) uint8 tensor
+    holding lane b's (h, w) = hw[b] image at its top-left; fill (B, C)
+    f32 is each lane's pad value (its average colour truncated, as the
+    uint8 pad holds it). Each window is resized by `_resize` on its own
+    (the windows' sides differ), then all are rounded at once. Returns
+    (B, model_sz, model_sz, C) f32 of whole grey levels: bitwise
+    `get_subwindow`'s on the CPU."""
+    crops = []
+    for b, window in enumerate(windows):
+        x0, y0, side = window
+        win = fill[b].expand(side, side, -1).contiguous()
+        ya, yb, xa, xb = _clip_window(window, *hw[b])
+        if ya < yb and xa < xb:
+            win[ya - y0:yb - y0, xa - x0:xb - x0] = frames[b, ya:yb, xa:xb]
+        crops.append(win if side == model_sz else _resize(win, model_sz))
+    return _grey(torch.stack(crops))
 
 
 # ---------------------------------------------------------------------------

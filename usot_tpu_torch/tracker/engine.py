@@ -40,7 +40,8 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from usot_tpu_torch.core.crop import get_subwindow, subwindow_gather
+from usot_tpu_torch.core.crop import (crop_windows, get_subwindow,
+                                      subwindow_gather, subwindow_geometry)
 from usot_tpu_torch.core.device import resolve_device
 from usot_tpu_torch.core.geometry import (feature_axis, python2round,
                                           score_grid)
@@ -49,7 +50,7 @@ from usot_tpu_torch.models.usot import USOTNet
 from usot_tpu_torch.parallel.mesh import replicate_tree, shard_batch
 from usot_tpu_torch.tracker.config import TrackerConfig
 from usot_tpu_torch.tracker.postprocess import hanning_window
-from usot_tpu_torch.tracker.tracker import _clip_number, _flip_lr
+from usot_tpu_torch.tracker.tracker import _clip_number
 from usot_tpu_torch.utils.profiling import span
 
 # px of slack around each crop window the ROI exactness check demands
@@ -390,6 +391,9 @@ class ScanEngine:
         # `BatchScanEngine.init_batch` calls so far: the round ordinal
         # the spans carry
         self.rounds = 0
+        # lanes whose init crops ran on the device (`init_batch`,
+        # `make_lane_states`); the single-video inits crop on the host
+        self.init_lanes_device = 0
 
     # ---- one frame step, B lanes ----
 
@@ -498,22 +502,25 @@ class ScanEngine:
 
     # ---- host API ----
 
-    def _init_host(self, im, target_pos, target_sz):
-        """Host-side init work: the template crop and the two memory
-        bootstrap crops with their pool labels (ref:
-        usot_tracker.py:22-131). No device work."""
+    def _init_geometry(self, im_shape, target_pos, target_sz):
+        """The scalar part of a lane's init, on the host in float64 with
+        Python's rounding (ref: usot_tracker.py:22-131): the sides of the
+        template and search windows (`s_z`, `s_x`) and their windows
+        (`z_win`, `x_win`, from `subwindow_geometry`), the template box
+        `tb`, and the pool labels of the bootstrap crop (`sb0`) and of
+        its flip (`sb1`)."""
         p = self.p
         target_pos = np.asarray(target_pos, np.float64)
         target_sz = np.asarray(target_sz, np.float64)
-        avg_chans = np.mean(im, axis=(0, 1))
 
         wc_z = target_sz[0] + p.context_amount * target_sz.sum()
         hc_z = target_sz[1] + p.context_amount * target_sz.sum()
         s_z = round(np.sqrt(wc_z * hc_z))
 
         tf_axis = feature_axis(p.tf_size, p.total_stride, p.exemplar_size)
-        z_crop, info = get_subwindow(im, target_pos, p.exemplar_size, s_z,
-                                     avg_chans, target_sz, need_bbox=True)
+        info, z_win = subwindow_geometry(im_shape, target_pos,
+                                         p.exemplar_size, s_z, target_sz,
+                                         need_bbox=True)
         tb = np.clip(np.asarray(info["template_bbox"], np.float32),
                      tf_axis[0], tf_axis[-1])
         tb = (tb - tf_axis[0]) * (2 * (p.tf_size // 2)) / (tf_axis[-1]
@@ -522,9 +529,10 @@ class ScanEngine:
         s_z_f = np.sqrt(wc_z * hc_z)
         scale_z = p.exemplar_size / s_z_f
         s_x = s_z_f + 2 * ((p.instance_size - p.exemplar_size) / 2) / scale_z
-        x_crop, info = get_subwindow(im, target_pos, p.instance_size,
-                                     python2round(s_x), avg_chans,
-                                     target_sz, need_bbox=True)
+        s_x = python2round(s_x)
+        info, x_win = subwindow_geometry(im_shape, target_pos,
+                                         p.instance_size, s_x, target_sz,
+                                         need_bbox=True)
         sf_axis = feature_axis(p.sf_size, p.total_stride, p.instance_size)
 
         def pool_label(bbox):
@@ -533,19 +541,36 @@ class ScanEngine:
                         sf_axis[-1] + gap)
             return (b - sf_axis[0]) / gap
 
-        x_aug, bbox_aug = _flip_lr(np.asarray(x_crop), info["template_bbox"])
-        bbox_aug = [_clip_number(bbox_aug[0], _max=x_aug.shape[1]),  # x vs W
-                    _clip_number(bbox_aug[1], _max=x_aug.shape[0]),  # y vs H
-                    _clip_number(bbox_aug[2], _max=x_aug.shape[1]),
-                    _clip_number(bbox_aug[3], _max=x_aug.shape[0])]
+        # the box in the left-right flip of the (S, S) search crop
+        s = p.instance_size
+        x1, y1, x2, y2 = info["template_bbox"]
+        bbox_aug = [_clip_number(v, _max=s) for v in (s - x2, y1, s - x1, y2)]
+        return dict(pos=target_pos, sz=target_sz, s_z=s_z, s_x=s_x,
+                    z_win=z_win, x_win=x_win, tb=tb,
+                    sb0=pool_label(info["template_bbox"]),
+                    sb1=pool_label(bbox_aug))
+
+    def _init_host(self, im, target_pos, target_sz):
+        """Host-side init work: the template crop and the two memory
+        bootstrap crops with their pool labels (ref:
+        usot_tracker.py:22-131). No device work."""
+        p = self.p
+        g = self._init_geometry(im.shape, target_pos, target_sz)
+        avg_chans = np.mean(im, axis=(0, 1))
+        z_crop, _ = get_subwindow(im, g["pos"], p.exemplar_size, g["s_z"],
+                                  avg_chans)
+        x_crop, _ = get_subwindow(im, g["pos"], p.instance_size, g["s_x"],
+                                  avg_chans)
+        x_crop = np.asarray(x_crop, np.float32)
         return dict(
-            pos=target_pos, sz=target_sz, avg=avg_chans,
-            z_crop=np.asarray(z_crop, np.float32), tb=tb,
-            x_crop=np.asarray(x_crop, np.float32),
-            sb0=pool_label(info["template_bbox"]),
-            x_aug=x_aug.astype(np.float32), sb1=pool_label(bbox_aug))
+            pos=g["pos"], sz=g["sz"], avg=avg_chans,
+            z_crop=np.asarray(z_crop, np.float32), tb=g["tb"],
+            x_crop=x_crop, sb0=g["sb0"],
+            x_aug=np.ascontiguousarray(x_crop[:, ::-1]), sb1=g["sb1"])
 
     def _f32(self, a):
+        if isinstance(a, torch.Tensor):
+            return a.to(self.device, torch.float32)
         return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
 
     @torch.inference_mode()
@@ -703,34 +728,92 @@ class BatchScanEngine(ScanEngine):
 
     @torch.inference_mode()
     def init_batch(self, videos, runner) -> EngineState:
-        """videos: list of (first_frame, target_pos, target_sz). Host
-        crops per video, then the model passes batched across the group:
-        the template for B videos, the memory bootstrap for 2B crops."""
+        """videos: list of (first_frame, target_pos, target_sz). The
+        lanes' geometry on the host, their crops batched on the device
+        (`_init_device`), then the model passes batched across the
+        group: the template for B videos, the memory bootstrap for 2B
+        crops."""
         self.rounds += 1
         for sh in self._shards or ():
             sh.rounds = self.rounds
         with span("engine.init_batch", self.rounds):
             with span("engine.init_host"):
-                hosts = [self._init_host(im, pos, sz)
-                         for im, pos, sz in videos]
+                lanes = self._init_device(videos)
             return self._init_lanes(
-                hosts, [[im.shape[0], im.shape[1]] for im, _, _ in videos],
+                lanes, [[im.shape[0], im.shape[1]] for im, _, _ in videos],
                 runner)
 
-    def _init_lanes(self, hosts, hws, runner) -> EngineState:
-        """`init_batch`'s device part, from the lanes' host crops and
-        their images' (h, w)."""
-        b = len(hosts)
+    def _upload_first(self, ims):
+        """The lanes' first frames as one (B, H, W, 3) uint8 tensor on the
+        device, lane b's image at its top-left and zeros beyond it (H, W:
+        the largest image's), in one host-to-device copy. The staging
+        buffer is pinned on a GPU; PyTorch's pinned-memory cache hands
+        the same block back the next round once the copy out of it has
+        ended, so the copy does not block the host."""
+        shape = (len(ims), max(im.shape[0] for im in ims),
+                 max(im.shape[1] for im in ims), 3)
+        stage = torch.empty(shape, dtype=torch.uint8,
+                            pin_memory=self.device.type == "cuda")
+        for lane, im in zip(stage.numpy(), ims):
+            h, w = im.shape[:2]
+            lane[:h, :w] = im
+            lane[h:] = 0
+            lane[:h, w:] = 0
+        return stage.to(self.device, non_blocking=True)
+
+    def _init_device(self, videos) -> dict:
+        """The host part of a batched init with its pixel work on the
+        device: `_init_geometry` per lane on the host, the lanes' first
+        frames up in one copy, and on the device, batched over the lanes,
+        each frame's mean colour (np.mean's value: an exact integer sum
+        over the pixel count, in float64) and the template and bootstrap
+        crops (`crop_windows`; bitwise `_init_host`'s on the CPU) and the
+        bootstrap's flip. Nothing waits for the device. Returns the
+        stacked pieces `_init_lanes` takes."""
+        p = self.p
+        geo = [self._init_geometry(im.shape, pos, sz)
+               for im, pos, sz in videos]
+        hw = [im.shape[:2] for im, _, _ in videos]
+        frames = self._upload_first([im for im, _, _ in videos])
+        count = torch.tensor([h * w for h, w in hw], dtype=torch.float64)
+        avg = frames.sum(dim=(1, 2), dtype=torch.int64).double() \
+            / count.to(self.device, non_blocking=True)[:, None]
+        fill = avg.to(torch.uint8).float()
+        z = crop_windows(frames, hw, fill, [g["z_win"] for g in geo],
+                         p.exemplar_size)
+        x = crop_windows(frames, hw, fill, [g["x_win"] for g in geo],
+                         p.instance_size)
+        self.init_lanes_device += len(videos)
+        return dict(
+            pos=np.stack([g["pos"] for g in geo]),
+            sz=np.stack([g["sz"] for g in geo]), avg=avg, z=z,
+            tb=np.stack([g["tb"] for g in geo]),
+            xs=torch.stack([x, x.flip(2)], dim=1).flatten(0, 1),
+            sbs=np.stack([g[k] for g in geo for k in ("sb0", "sb1")]))
+
+    @staticmethod
+    def _encode(lanes, runner):
+        """The batched model passes of an init: zf_enc, the template's
+        (cls, reg) 3-tuples of (B, h, w, C), and feat_enc, the encoded
+        [bootstrap, flip] anchors, a 3-tuple of (2B, h, w, C)."""
+        zf_enc = runner.encode_template(runner.template_batch(lanes["z"],
+                                                              lanes["tb"]))
+        feat_enc = runner.encode_memory_kernels(
+            runner.extract_memory_feature_batch(lanes["xs"], lanes["sbs"]))
+        return zf_enc, feat_enc
+
+    def _init_lanes(self, lanes, hws, runner) -> EngineState:
+        """`init_batch`'s model passes and carry, from the lanes' stacked
+        init pieces and their images' (h, w). lanes: pos, sz (B, 2) and
+        avg (B, 3); the templates z (B, T, T, 3) with their boxes tb
+        (B, 4); the bootstrap crops xs (2B, S, S, 3), each lane's crop
+        then its flip, with their pool labels sbs (2B, 4). Crops are
+        device tensors (`_init_device`) or numpy (`_init_host`'s,
+        stacked)."""
+        b = len(hws)
         if b != self.batch:
             raise ValueError(f"{b} videos for a batch of {self.batch}")
-
-        z = np.stack([h["z_crop"] for h in hosts])            # (B, T, T, 3)
-        tb = np.stack([h["tb"] for h in hosts])               # (B, 4)
-        zf_enc = runner.encode_template(runner.template_batch(z, tb))
-        xs = np.stack([h[k] for h in hosts for k in ("x_crop", "x_aug")])
-        sbs = np.stack([h[k] for h in hosts for k in ("sb0", "sb1")])
-        feat_enc = runner.encode_memory_kernels(
-            runner.extract_memory_feature_batch(xs, sbs))   # 3x (2B,h,w,C)
+        zf_enc, feat_enc = self._encode(lanes, runner)
 
         mem_enc = []
         for f in feat_enc:
@@ -745,19 +828,16 @@ class BatchScanEngine(ScanEngine):
         mem_idx = torch.full((b, self.max_frames), -1, dtype=torch.int32,
                              device=self.device)
         mem_idx[:, 0] = 0
-        self._avg_b = self._f32(np.stack([h["avg"] for h in hosts]))
+        self._avg_b = self._f32(lanes["avg"])
         self._im_hw_b = self._f32(hws)
         # Floor of `suggest_roi`: the crop-window span at init. A tracker
         # that loses its target collapses its size EMA, and an ROI sized
         # from the collapsed span replays as soon as the window has to
         # cover re-acquisition motion (`usot_tpu/tracker/engine.py:834-843`)
-        x0, x1, _, _ = self._crop_window(
-            np.stack([h["pos"] for h in hosts]).astype(np.float64),
-            np.stack([h["sz"] for h in hosts]).astype(np.float64))
+        x0, x1, _, _ = self._crop_window(lanes["pos"], lanes["sz"])
         self._init_span = float(np.max(x1 - x0))
         state = EngineState(
-            pos=self._f32(np.stack([h["pos"] for h in hosts])),
-            sz=self._f32(np.stack([h["sz"] for h in hosts])),
+            pos=self._f32(lanes["pos"]), sz=self._f32(lanes["sz"]),
             # (B, 1, h, w, C): the per-video model batch dim of the
             # single-video layout
             zf_enc=tuple(tuple(t[:, None] for t in side) for side in zf_enc),
@@ -888,34 +968,34 @@ class BatchScanEngine(ScanEngine):
 
     @torch.inference_mode()
     def make_lane_states(self, videos, runner) -> dict:
-        """`make_lane_state` for K <= B videos at once: host crops per
-        video, then ONE set of batched model passes at the engine's batch
-        (padded with copies of the first video), as `init_batch` runs
-        them. For lane refill, where several lanes end at one chunk
-        boundary. Numerics are the batched init's, not the B=1 passes'
-        (VOT restarts keep `make_lane_state`). Returns the stacked pieces
-        for `splice_lanes` (zf_enc (B, h, w, C), feat_enc (2B, h, w, C))
-        with their count under "k"."""
+        """`make_lane_state` for K <= B videos at once: the crops on the
+        device (`_init_device`), then ONE set of batched model passes at
+        the engine's batch (padded with copies of the first video), as
+        `init_batch` runs them. For lane refill, where several lanes end
+        at one chunk boundary. Numerics are the batched init's, not the
+        B=1 passes' (VOT restarts keep `make_lane_state`). Returns the
+        stacked pieces for `splice_lanes` (zf_enc (B, h, w, C), feat_enc
+        (2B, h, w, C); avg on the device) with their count under "k"."""
         b, k = self.batch, len(videos)
         if not 1 <= k <= b:
             raise ValueError(f"{k} videos for a batch of {b}")
-        hosts = [self._init_host(im, pos, sz) for im, pos, sz in videos]
+        lanes = self._init_device(videos)
         hws = [[im.shape[0], im.shape[1]] for im, _, _ in videos]
-        hosts += [hosts[0]] * (b - k)
         hws += [hws[0]] * (b - k)
-        z = np.stack([h["z_crop"] for h in hosts])
-        tb = np.stack([h["tb"] for h in hosts])
-        xs = np.stack([h[key] for h in hosts for key in ("x_crop", "x_aug")])
-        sbs = np.stack([h[key] for h in hosts for key in ("sb0", "sb1")])
+
+        def pad(a, rows=1):
+            """a's lanes, then lane 0's `rows` rows for each missing lane."""
+            cat = torch.cat if isinstance(a, torch.Tensor) else np.concatenate
+            return cat([a] + [a[:rows]] * (b - k))
+
+        lanes = {key: pad(a, 2 if key in ("xs", "sbs") else 1)
+                 for key, a in lanes.items()}
+        zf_enc, feat_enc = self._encode(lanes, runner)
         return dict(
-            k=k,
-            pos=np.stack([h["pos"] for h in hosts]).astype(np.float32),
-            sz=np.stack([h["sz"] for h in hosts]).astype(np.float32),
-            avg=np.stack([h["avg"] for h in hosts]).astype(np.float32),
-            im_hw=np.asarray(hws, np.float32),
-            zf_enc=runner.encode_template(runner.template_batch(z, tb)),
-            feat_enc=runner.encode_memory_kernels(
-                runner.extract_memory_feature_batch(xs, sbs)))
+            k=k, pos=lanes["pos"].astype(np.float32),
+            sz=lanes["sz"].astype(np.float32), avg=lanes["avg"].float(),
+            im_hw=np.asarray(hws, np.float32), zf_enc=zf_enc,
+            feat_enc=feat_enc)
 
     def splice_lane(self, state: EngineState, lane: int,
                     lane_state: dict) -> EngineState:

@@ -34,6 +34,10 @@ class ModelRunner:
         self.mem_queue_size = mem_queue_size
 
     def _images(self, x_bhwc) -> torch.Tensor:
+        """Images as float32 on the device: numpy, or tensors (the batch
+        engine's device crops, used where they are)."""
+        if isinstance(x_bhwc, torch.Tensor):
+            return x_bhwc.to(self.device, torch.float32)
         x = np.ascontiguousarray(x_bhwc, dtype=np.float32)
         return torch.from_numpy(x).to(self.device)
 
@@ -86,16 +90,15 @@ class ModelRunner:
             xf = self.search_features(x_hwc)
         return self.model.pool_memory_feature(xf, self._boxes(search_bbox))
 
-    # -- batched variants --
+    # -- batched variants (images as numpy or device tensors) --
 
     @torch.inference_mode()
-    def template_batch(self, z_bhwc: np.ndarray, template_bbox_b4):
+    def template_batch(self, z_bhwc, template_bbox_b4):
         return self.model.template_features(self._images(z_bhwc),
                                             self._boxes(template_bbox_b4))
 
     @torch.inference_mode()
-    def extract_memory_feature_batch(self, x_bhwc: np.ndarray,
-                                     search_bbox_b4):
+    def extract_memory_feature_batch(self, x_bhwc, search_bbox_b4):
         xf = self.model.search_features(self._images(x_bhwc))
         return self.model.pool_memory_feature(xf,
                                               self._boxes(search_bbox_b4))
