@@ -83,3 +83,82 @@ def train_numbers(prog: dict, ref: dict, start: dict) -> dict:
             "grad": worst_leaf(prog["grad1"], ref["grad1"], ref["grad1"]),
             "change": worst_leaf(d_prog, d_ref, moving),
             "stats": worst_leaf(s_prog, s_ref, ref["stats"])}
+
+
+def mine_numbers(prog: dict, ref: dict, frames: list, cfg: dict,
+                 device) -> tuple[dict, str]:
+    """The mining check of one judged video. prog: the program's
+    "decisions" [(frame, interval, max|flow|)], "mined" (inference_
+    sequence's (boxes, picked, stats), or None where it dropped the
+    video) and "crops" {path: crop}; ref: `reference.mining.replay`'s.
+    Numbers: `maxflow_rel`, the largest |program - reference| / reference
+    of a forward's max|flow|; `decision_flips`, the forwards after which
+    the reference's rule on its own max|flow| takes another step than
+    the program took, where the reference's margin from 8 and 16 px
+    exceeds 100 times the two's gap (a sampled frame missing from or
+    added to the program's loop counts as one); `box_px_<stat>`, the
+    statistic the configuration names of the per-frame largest
+    coordinate gap between the program's boxes and the reference's DP
+    (infinite where one side mined no box); `crop_levels_max`, the
+    largest grey-level gap between the program's crops and the
+    reference's at the program's boxes (infinite where a crop is
+    missing). Returns ({name: number}, the readings for the log)."""
+    from portbench.reference.mining import (GROW_BELOW, SHRINK_ABOVE,
+                                            crop_x, next_interval)
+
+    gap, limits = cfg["mining"]["gap"], cfg["limits"]["mine_videos"]
+    dec, ref_max = prog["decisions"], ref["maxflow"]
+    rel = [abs(d[2] - r) / max(r, 1e-30) for d, r in zip(dec, ref_max)]
+    flips, direction = 0, 0
+    for k, ((i, interval, m), r) in enumerate(zip(dec, ref_max)):
+        nxt = dec[k + 1] if k + 1 < len(dec) and dec[k + 1][0] == i else None
+        took = None if nxt is None else (nxt[1], 1 if nxt[1] > interval
+                                         else -1)
+        margin = min(abs(r - GROW_BELOW), abs(r - SHRINK_ABOVE))
+        if next_interval(r, interval, direction) != took \
+                and margin > 100 * abs(m - r):
+            flips += 1
+        direction = 0 if took is None else took[1]
+    n = len(frames)
+    flips += len(set(ref["sampled"]) ^ set(range(gap, n - gap, gap)))
+
+    numbers = {"maxflow_rel": max(rel, default=0.0),
+               "decision_flips": float(flips)}
+    mined, rmined = prog["mined"], ref["mined"]
+    if mined is None or rmined is None:
+        box = np.array([0.0 if mined is None and rmined is None
+                        else np.inf])
+    else:
+        box = np.abs(np.asarray(mined[0], np.float64)
+                     - np.asarray(rmined[0], np.float64)).max(axis=1)
+    crop = [0.0]
+    if mined is not None:
+        by_frame = {int(p.rsplit("/", 1)[-1][:6]): c
+                    for p, c in prog["crops"].items()}
+        size = cfg["mining"]["instance_size"]
+        for f, b in enumerate(mined[0]):
+            if f not in by_frame:
+                crop.append(np.inf)
+                continue
+            want = crop_x(torch.from_numpy(frames[f]).to(device), b, size)
+            got = torch.from_numpy(by_frame[f]).to(device)
+            crop.append(float((got.int() - want.int()).abs().max()))
+    box_stats = {k: float(f(box)) if np.isfinite(box).all() else np.inf
+                 for k, f in STATS.items()}
+    for name in limits:
+        if name.startswith("box_px_"):
+            numbers[name] = box_stats[name.rsplit("_", 1)[1]]
+    numbers["crop_levels_max"] = max(crop)
+    same = mined is not None and rmined is not None
+    readings = (
+        f"forwards {len(dec)}; maxflow program "
+        f"{np.round([d[2] for d in dec], 4).tolist()}; maxflow_rel p50 "
+        f"{np.median(rel) if rel else 0:.3g} max "
+        f"{numbers['maxflow_rel']:.3g}; flips {flips}; box_px p50 "
+        f"{np.median(box):.4g} p90 {box_stats['p90']:.4g} max "
+        f"{box_stats['max']:.4g}; picked equal "
+        f"{same and list(mined[1]) == list(rmined[1])}; found, picked, "
+        f"vary program {None if mined is None else mined[2][1:4]} "
+        f"reference {None if rmined is None else rmined[2:5]}; crops "
+        f"{len(prog['crops'])}, largest gap {max(crop)}")
+    return numbers, readings

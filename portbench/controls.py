@@ -11,16 +11,19 @@ limit lies between the program's readings (its sound runs) and these.
 * The training cell (float32, TF32 off): the reference with TF32 on, and
   the fault of half the batch left out (the mean taken over the rest),
   each against the float32 reference.
-* The program itself, on a tracking cell, one round long: sound
+* The mining cell (float32, TF32 off): the program with TF32 on in its
+  flow network's forwards (`flow_tf32`), the plain reference judging it
+  as it judges the program.
+* The program itself, on any cell, one round (one video) long: sound
   (`sound`), or with one of `faults.py`'s faults planted (the fault's
   name); the numbers are the cell's own check's.
 
     python3 -m portbench.controls --workload <cell> --seeds <n> [<n>...]
-        [--variant fp8|tf32|half_batch|sound|<fault>]
+        [--variant fp8|tf32|half_batch|flow_tf32|sound|<fault>]
 
 prints one JSON line per seed with the numbers (on the card; the tests
 run it at small sizes on the CPU). The variant defaults to the cell's
-control: fp8 for a tracking cell, tf32 for the training cell.
+control, which its configuration names (`control`).
 """
 from __future__ import annotations
 
@@ -35,8 +38,9 @@ import torch
 
 from portbench import harness
 from portbench.checks import train_numbers
-from portbench.faults import TRACKING
+from portbench.faults import MINING, TRACKING
 from portbench.reference.net import Net
+from portbench.reference.numerics import deterministic
 from portbench.reference.tracker import Tracker
 
 FP8_MAX = 448.0  # largest float8_e4m3fn
@@ -128,7 +132,8 @@ def train_cycle(ctx, variant: str) -> dict:
         return {"loss": [l[3] for l in run["loss"]],
                 **{k: {n: t.cpu() for n, t in run[k].items()}
                    for k in ("grad1", "params", "stats")}}
-    ref = flat(train(weights, batches, hp, steps))
+    with deterministic():
+        ref = flat(train(weights, batches, hp, steps))
     if variant == "tf32":
         torch.backends.cudnn.allow_tf32 = True
         torch.backends.cuda.matmul.allow_tf32 = True
@@ -140,7 +145,8 @@ def train_cycle(ctx, variant: str) -> dict:
     elif variant == "half_batch":
         half = [{k: v[:tr["batch"] // 2] for k, v in b.items()}
                 for b in batches]
-        worse = flat(train(weights, half, hp, steps))
+        with deterministic():
+            worse = flat(train(weights, half, hp, steps))
     else:
         raise ValueError(f"variant {variant!r}")
     numbers = train_numbers(worse, ref, {k: v.cpu()
@@ -148,10 +154,40 @@ def train_cycle(ctx, variant: str) -> dict:
     return {k: v for k, (v, _) in numbers.items()}
 
 
+def flow_tf32(patch):
+    """The mining program's flow forwards with TF32 on (cuDNN and
+    matmul), the switches restored after each."""
+    from usot_tpu_torch.preprocessing.inference import FlowHelper
+
+    real = FlowHelper.forward
+
+    def forward(self, *a, **k):
+        saved = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return real(self, *a, **k)
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = saved
+    patch.setattr(FlowHelper, "forward", forward)
+
+
+# the reference put in the program's place, by variant and by driver
+REFERENCE = {
+    "fp8": {"engine_staged": track_staged, "tracker_live": track_live},
+    "tf32": {"train_step": lambda ctx: train_cycle(ctx, "tf32")},
+    "half_batch": {"train_step": lambda ctx: train_cycle(ctx, "half_batch")},
+}
+# the program with a lower precision switched on or a fault planted
+PROGRAM = {"flow_tf32": flow_tf32, **TRACKING, **MINING}
+
+
 def program_run(ctx, variant: str) -> dict:
-    """The cell's own run, one round long, sound or with fault `variant`
-    planted: every statistic its check may name, the readings' spread
-    on the log."""
+    """The cell's own run, one round long, sound or with `variant`
+    planted (a fault, or the mining cell's `flow_tf32` control): every
+    number its check compares, the readings on the log."""
     import importlib
 
     from portbench.faults import Patcher
@@ -160,7 +196,7 @@ def program_run(ctx, variant: str) -> dict:
         f"portbench.drivers.{ctx.traffic['driver']}")
     with Patcher() as patch:
         if variant != "sound":
-            TRACKING[variant](patch)
+            PROGRAM[variant](patch)
         out = driver.run(ctx)
     for note in out.notes:
         print(note, file=sys.stderr, flush=True)
@@ -168,14 +204,12 @@ def program_run(ctx, variant: str) -> dict:
 
 
 def run(ctx, variant: str | None = None) -> dict:
-    driver = ctx.traffic["driver"]
-    if driver == "train_step":
-        return train_cycle(ctx, variant or "tf32")
-    if variant not in (None, "fp8"):
+    """The numbers of `variant` (by default the configuration's
+    `control`) on the cell."""
+    variant = variant or ctx.config["control"]
+    if variant == "sound" or variant in PROGRAM:
         return program_run(ctx, variant)
-    if driver == "engine_staged":
-        return track_staged(ctx)
-    return track_live(ctx)
+    return REFERENCE[variant][ctx.traffic["driver"]](ctx)
 
 
 def main(argv=None) -> int:
@@ -183,8 +217,7 @@ def main(argv=None) -> int:
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", type=int, nargs="+", required=True)
     ap.add_argument("--variant", default=None,
-                    choices=("fp8", "tf32", "half_batch", "sound",
-                             *TRACKING))
+                    choices=("sound", *REFERENCE, *PROGRAM))
     args = ap.parse_args(argv)
     root = Path(__file__).resolve().parents[1]
     _, cell, config, traffic = harness.find_cell(root, args.workload)
@@ -200,8 +233,7 @@ def main(argv=None) -> int:
                               started=time.time())
         t0 = time.perf_counter()
         numbers = run(ctx, args.variant)
-        variant = args.variant or ("tf32" if traffic["driver"]
-                                   == "train_step" else "fp8")
+        variant = args.variant or config["control"]
         print(json.dumps({"workload": args.workload, "seed": seed,
                           "variant": variant, **numbers,
                           "seconds": time.perf_counter() - t0}), flush=True)

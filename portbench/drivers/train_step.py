@@ -25,6 +25,7 @@ import torch
 from portbench.checks import train_numbers
 from portbench.drivers import program
 from portbench.harness import Outcome
+from portbench.reference.numerics import deterministic
 from portbench.reference.train import STATS, leaves, train
 from portbench.trace import Profile, peak_bytes, release, span, sync
 from portbench.weights import make_weights
@@ -133,8 +134,9 @@ def run(ctx) -> Outcome:
     del model, opt, step, params, state
     release(dev)
 
-    ref = train({k: v for k, v in weights.items()}, batches,
-                hyper(cfg, tr), tr["check_steps"])
+    with deterministic():
+        ref = train({k: v for k, v in weights.items()}, batches,
+                    hyper(cfg, tr), tr["check_steps"])
     ref_cpu = {"loss": [l[3] for l in ref["loss"]],
                **{k: {n: t.cpu() for n, t in ref[k].items()}
                   for k in ("grad1", "params", "stats")}}

@@ -19,6 +19,22 @@ Tracking, in `BatchScanEngine.track_staged`'s outputs:
 and in the model:
 * `relu_dropped`: the first ReLU of the backbone's first bottleneck
   left out.
+
+Mining (`MINING`), in the flow network (`preprocessing/pwclite.py`):
+* `warp_shifted`: every warp samples 1 px to the right;
+* `corr_transposed`: the cost volume's (dy, dx) order transposed;
+* `context_dropped`: the context network's residual not added;
+on the host (`preprocessing/flow2box.py`, `inference.py`,
+`crop_gen.py`):
+* `shrink_lowered`: the adaptive loop shrinks the interval above 9 px
+  of max|flow|, not 16;
+* `grow_raised`: the adaptive loop grows the interval below 16 px of
+  max|flow|, not 8 (the shrink threshold put in the growth rule);
+* `threshold_raised`: `flow_to_bbox`'s first threshold (`GROUPS[0]`'s
+  mean-max ratio) 0.75, not 0.7;
+* `dp_reward_flipped`: the DP's reward for a box's agreement with the
+  box before it (its modified DIoU) with its sign flipped;
+* `crop_shifted`: every crop taken at its box moved 1 px to the right.
 """
 from __future__ import annotations
 
@@ -99,6 +115,79 @@ def relu_dropped(m):
 TRACKING = {f.__name__: f for f in (answer_altered, size_scaled,
                                     score_shifted, chunk_first_frame,
                                     chunk_lanes_rolled, relu_dropped)}
+
+
+def warp_shifted(m):
+    import usot_tpu_torch.preprocessing.pwclite as pwclite
+
+    real = pwclite.flow_warp
+
+    def warp(x, flow):
+        return real(x, flow + flow.new_tensor([1.0, 0.0])[None, :, None,
+                                                         None])
+    m.setattr(pwclite, "flow_warp", warp)
+
+
+def corr_transposed(m):
+    import usot_tpu_torch.preprocessing.pwclite as pwclite
+
+    real = pwclite.correlation
+
+    def correlation(x1, x2, d=4):
+        out = real(x1, x2, d)
+        b, k, h, w = out.shape
+        n = 2 * d + 1
+        return out.view(b, n, n, h, w).transpose(1, 2).reshape(b, k, h, w)
+    m.setattr(pwclite, "correlation", correlation)
+
+
+def context_dropped(m):
+    import usot_tpu_torch.preprocessing.pwclite as pwclite
+
+    m.setattr(pwclite.ContextNetwork, "forward",
+              lambda self, x: self.convs(x) * 0.0)
+
+
+def shrink_lowered(m):
+    import usot_tpu_torch.preprocessing.inference as inference
+
+    m.setattr(inference, "SHRINK_ABOVE", 9)
+
+
+def grow_raised(m):
+    import usot_tpu_torch.preprocessing.inference as inference
+
+    m.setattr(inference, "GROW_BELOW", 16)
+
+
+def threshold_raised(m):
+    import usot_tpu_torch.preprocessing.flow2box as flow2box
+
+    m.setattr(flow2box, "GROUPS", ((0.75, 0.5),) + flow2box.GROUPS[1:])
+
+
+def dp_reward_flipped(m):
+    import usot_tpu_torch.preprocessing.flow2box as flow2box
+
+    real = flow2box.diou_modify
+    m.setattr(flow2box, "diou_modify", lambda a, b: -real(a, b))
+
+
+def crop_shifted(m):
+    import usot_tpu_torch.preprocessing.crop_gen as crop_gen
+
+    real = crop_gen.crop_like_siamfc
+
+    def crop(image, bbox, *a, **k):
+        return real(image, (bbox[0] + 1, bbox[1], bbox[2] + 1, bbox[3]),
+                    *a, **k)
+    m.setattr(crop_gen, "crop_like_siamfc", crop)
+
+
+MINING = {f.__name__: f for f in (warp_shifted, corr_transposed,
+                                  context_dropped, shrink_lowered,
+                                  grow_raised, threshold_raised,
+                                  dp_reward_flipped, crop_shifted)}
 
 
 class Patcher(contextlib.ExitStack):

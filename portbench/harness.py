@@ -76,15 +76,26 @@ def load_json(path: Path) -> dict:
         return json.load(f)
 
 
+def with_parked(root: Path, bench: dict) -> dict:
+    """`bench` with the parked cells' entries added: cells whose files are
+    here and whose entries are not in BENCHMARK.json, because their runs
+    on the card spread too widely for any bound the benchmark may set
+    (`portbench/parked.json`; PERF.md). They run as any cell does."""
+    parked = load_json(root / "portbench" / "parked.json")
+    return {k: v + parked[k] if k in parked else v for k, v in bench.items()}
+
+
 def find_cell(root: Path, name: str, bench: dict | None = None
               ) -> tuple[dict, dict, dict, dict]:
-    """(BENCHMARK.json (or `bench`), the cell, its configuration, its
-    traffic mix)."""
-    bench = load_json(root / "BENCHMARK.json") if bench is None else bench
+    """(BENCHMARK.json with the parked cells (or `bench`), the cell, its
+    configuration, its traffic mix)."""
+    if bench is None:
+        bench = with_parked(root, load_json(root / "BENCHMARK.json"))
     cells = {w["name"]: w for w in bench["workloads"]}
     if name not in cells:
         raise SystemExit(f"portbench: no workload {name!r} in "
-                         f"BENCHMARK.json ({sorted(cells)})")
+                         f"BENCHMARK.json or the parked cells "
+                         f"({sorted(cells)})")
     cell = cells[name]
     config = next(c for c in bench["configs"] if c["name"] == cell["config"])
     return (bench, cell, load_json(root / config["file"]),

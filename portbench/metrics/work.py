@@ -18,6 +18,11 @@ work; and the H100's published peaks (NVIDIA's data sheet, SXM, dense).
   (offline cls and reg at M=1, the memory branch at M=`queue`): their
   operations and the bytes that reading each input once and writing
   the output once moves.
+* `flow_forward_flops`: one 3-frame PWCLite forward of the reference
+  (`reference/pwclite.py`) at an input size: its convolutions, and its
+  cost volumes and warps as it computes them (each shift's product and
+  channel mean, one operation an element each; a bilinear sample four
+  multiply-adds an output element and channel).
 """
 from __future__ import annotations
 
@@ -55,9 +60,22 @@ def _conv_backward(grad_out_shape, x_shape, w_shape, *args,
     return forward * (int(mask[0]) + int(mask[1]))
 
 
-def _flops(fn) -> float:
+def _elementwise(*shapes, out_shape=None, **kwargs) -> int:
+    return math.prod(out_shape)
+
+
+def _reduction(x_shape, *args, out_shape=None, **kwargs) -> int:
+    return math.prod(x_shape)
+
+
+def _bilinear(x_shape, grid_shape, *args, out_shape=None, **kwargs) -> int:
+    return 8 * math.prod(out_shape)
+
+
+def _flops(fn, mapping=None) -> float:
     with FlopCounterMode(display=False, custom_mapping={
-            torch.ops.aten.convolution_backward: _conv_backward}) as counter:
+            torch.ops.aten.convolution_backward: _conv_backward,
+            **(mapping or {})}) as counter:
         fn()
     return float(counter.get_total_flops())
 
@@ -123,3 +141,16 @@ def k1_calls(lanes: int, channels: int, queue: int, itemsize: int,
         nbytes += lanes * m * out[0] * out[1] * channels
         calls.append((float(flops), float(nbytes * itemsize)))
     return calls
+
+
+@functools.lru_cache(maxsize=None)
+def flow_forward_flops(h: int, w: int) -> float:
+    from portbench.reference import pwclite
+
+    weights = {k: torch.empty(s, device=META)
+               for k, s in pwclite.param_shapes().items()}
+    x = torch.empty((1, 3, h, w), device=META)
+    aten = torch.ops.aten
+    return _flops(lambda: pwclite.flows_3_frames(weights, x, x, x), {
+        aten.mul: _elementwise, aten.mean: _reduction,
+        aten.grid_sampler_2d: _bilinear})

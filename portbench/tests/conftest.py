@@ -24,45 +24,30 @@ SMALL = {
     "track_b1_live": dict(frame=[120, 160], lengths=[5, 7, 9],
                           box_px=[40, 60], speed_px=[0.5, 1.0],
                           check_frames=10, trace_seconds=0.5),
+    "mine_got10k_720p": dict(frame=[192, 256], lengths=[16, 19],
+                             object_frac=[0.2, 0.35], warm_frames=10,
+                             trace_seconds=0.5),
 }
-
-
-# A cell whose files are here and whose entries are not (yet) in
-# BENCHMARK.json: its runs on the card spread too widely for any bound
-# the benchmark may set (PERF.md). Its tests run it with these entries.
-PARKED = {
-    "workloads": [{"name": "track_b1_live", "config": "usot_star_r50_bf16",
-                   "traffic": "live_b1_720p", "chips": 1,
-                   "why": "one closed-loop client, 720p uint8 frames"}],
-    "end_to_end": [{"name": "frame_ms_p95", "unit": "ms", "better": "lower",
-                    "bound": 0.25, "source": "host_clock",
-                    "workloads": ["track_b1_live"]}],
-    "per_layer": [{"name": name, "unit": unit, "better": "lower",
-                   "source": "device_trace", "layer": layer,
-                   "moves": "frame_ms_p95", "workloads": ["track_b1_live"]}
-                  for name, unit, layer in (
-                      ("launches_per_frame.live", "launches", "tracker loop"),
-                      ("device_idle_pct.live", "%", "device"))],
-}
-
-
-def benchmark(root: Path = ROOT) -> dict:
-    """BENCHMARK.json at `root` with the parked cell's entries added."""
-    bench = harness.load_json(root / "BENCHMARK.json")
-    for key, entries in PARKED.items():
-        bench[key] = bench[key] + entries
-    return bench
+# configuration entries of a cell at the test sizes (the flow network's
+# test shape: its sides multiples of 64, as PWCLite's pyramid needs)
+SMALL_CONFIG = {"mine_got10k_720p": dict(test_shape=[128, 192],
+                                         flow_gain=14.5,
+                                         mining=dict(gap=3, init_adjacent=4,
+                                                     cut_ratio=0.03125,
+                                                     instance_size=127,
+                                                     max_frames=2000,
+                                                     quality_gate=False))}
 
 
 def small_context(cell: str, seed: int = 2 ** 31 + 11, seconds: float = 0.5,
                   trace: bool = False, root: Path = ROOT, config=None,
                   traffic=None, device="cpu"):
-    """(BENCHMARK.json with the parked cell, a Context for `cell` at the
+    """(BENCHMARK.json with the parked cells, a Context for `cell` at the
     test sizes on `device`), with `config` / `traffic` entries laid over
     the cell's."""
-    bench, cell_entry, cfg, tr = harness.find_cell(root, cell,
-                                                   benchmark(root))
+    bench, cell_entry, cfg, tr = harness.find_cell(root, cell)
     cfg.update(TINY)
+    cfg.update(SMALL_CONFIG.get(cell, {}))
     cfg.update(config or {})
     tr.update(SMALL.get(cell, {}))
     tr.update(traffic or {})

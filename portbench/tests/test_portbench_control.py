@@ -1,12 +1,15 @@
 """The controls fail each cell's check, on the card (marked `gpu`; they
 skip without one): the reference in the next precision down (fp8 for
-the bf16 tracking cells, TF32 for the float32 training cell) and the
-training fault of half the batch, at reduced lanes, frames and batch
-but the published widths, on three seeds each. The cell's sound run at
-the same size passes. Run: `python3 -m pytest portbench/tests -m gpu`."""
+the bf16 tracking cells, TF32 for the float32 training cell; the
+mining program with TF32 on) and the training fault of half the batch,
+at reduced lanes, frames and videos but the published widths (the
+training cell at its own batch, where its control is read), on three
+seeds each. The cell's sound run at the same size passes. Run:
+`python3 -m pytest portbench/tests -m gpu`."""
 import pytest
+import torch
 
-from conftest import small_context
+from conftest import ROOT, small_context
 from portbench import controls, harness
 
 SEEDS = (2 ** 31 + 101, 2 ** 31 + 202, 2 ** 31 + 303)
@@ -19,14 +22,27 @@ REDUCED = {
     "track_b1_live": dict(lengths=[40, 60], check_frames=60,
                           frame=[720, 1280], box_px=[80, 200],
                           speed_px=[0.5, 3.0]),
-    "train_cycle_b12": dict(batch=4, mem_num=2),
+    "train_cycle_b12": dict(batch=12, mem_num=4),
+    "mine_got10k_720p": dict(lengths=[60], frame=[720, 1280],
+                             object_frac=[0.12, 0.3]),
 }
 CASES = [("track_b64_staged", "fp8"), ("track_b1_live", "fp8"),
-         ("train_cycle_b12", "tf32"), ("train_cycle_b12", "half_batch")]
+         ("train_cycle_b12", "tf32"), ("train_cycle_b12", "half_batch"),
+         ("mine_got10k_720p", "flow_tf32")]
+# the mining cell's configuration as it stands: its published test shape
+# and crop size (the CPU tests' small ones undone)
+FULL = {"mine_got10k_720p": dict(test_shape=[384, 640], mining=dict(
+    gap=3, init_adjacent=4, cut_ratio=0.03125, instance_size=511,
+    max_frames=2000, quality_gate=False))}
 
 
 def context(cell, seed, card):
-    return small_context(cell, seed=seed, seconds=1.0, config=WIDE,
+    # float32 with TF32 off, as `harness.main` and `controls.main` set it
+    # (PyTorch lets cuDNN use TF32 unless told not to)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return small_context(cell, seed=seed, seconds=1.0,
+                         config={**WIDE, **FULL.get(cell, {})},
                          traffic=REDUCED[cell], device=card)
 
 
@@ -38,6 +54,16 @@ def test_control_fails_the_check(cell, variant, card):
         numbers = controls.run(ctx, variant)
         limits = ctx.config["limits"][ctx.traffic["driver"]]
         assert any(numbers[k] > limits[k] for k in limits), (seed, numbers)
+
+
+@pytest.mark.parametrize("cell", sorted(REDUCED))
+def test_each_cell_names_a_control_it_can_run(cell):
+    """The default control is the configuration's `control`, and the
+    controls can put it in the program's place on the cell's driver."""
+    _, _, config, traffic = harness.find_cell(ROOT, cell)
+    variant = config["control"]
+    assert variant in controls.PROGRAM \
+        or traffic["driver"] in controls.REFERENCE[variant]
 
 
 @pytest.mark.gpu

@@ -34,11 +34,17 @@ def test_no_jax_anywhere(path):
         assert name not in text
 
 
+# the mining reference's connected components are SciPy's, as USOT's
+# flow_utils takes them from a library (skimage)
+LIBRARIES = {"mining.py": {"scipy"}}
+
+
 @pytest.mark.parametrize("path", sorted((PB / "reference").glob("*.py")),
                          ids=lambda p: p.name)
 def test_reference_stands_alone(path):
     tops = {n.split(".")[0] for n in imported(path)}
-    assert tops <= {"__future__", "math", "numpy", "torch", "portbench"}
+    assert tops <= {"__future__", "contextlib", "math", "numpy", "torch",
+                    "portbench", *LIBRARIES.get(path.name, ())}
     assert all(n.startswith("portbench.reference") for n in imported(path)
                if n.startswith("portbench"))
 

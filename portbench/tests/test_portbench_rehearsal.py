@@ -11,7 +11,8 @@ import pytest
 from conftest import ROOT, small_context
 from portbench import harness
 
-CELLS = ("track_b64_staged", "train_cycle_b12", "track_b1_live")
+CELLS = ("track_b64_staged", "train_cycle_b12", "track_b1_live",
+         "mine_got10k_720p")
 KEYS = ("correct", "attempted", "failed", "metrics", "device")
 
 

@@ -17,8 +17,9 @@ the result's breakdown read:
   `kernel_s`, device seconds by kernel name;
 * `device_ops`: the 10 names with the most device seconds;
 * `idle_gaps`: idle device seconds inside the window summed by the
-  innermost `pb.` span the host was in at the gap's middle, the 10
-  largest (`host outside any span` where there is none).
+  innermost `pb.` span the host was in (a gap that spans several is
+  split among them), the 10 largest (`host outside any span` where
+  there is none).
 """
 from __future__ import annotations
 
@@ -128,21 +129,27 @@ def reduce(events) -> dict:
 
 
 def _attribute(gaps, spans) -> dict:
-    """Idle seconds by the innermost span covering each gap's middle: the
-    host's spans nest, so walking back from the latest one started, the
-    first that still runs is the innermost (64 looked at, at most)."""
+    """Idle seconds by the innermost span the host was in: each gap cut
+    where a span starts or ends inside it, and each piece given to the
+    innermost span covering its middle (the host's spans nest, so
+    walking back from the latest one started, the first that still runs
+    is the innermost; 64 looked at, at most)."""
     spans = sorted(spans)
     starts = [s[0] for s in spans]
+    edges = sorted({t for s in spans for t in s[:2]})
     out = defaultdict(float)
     for a, b in gaps:
-        mid = (a + b) // 2
-        name = "host outside any span"
-        first = bisect.bisect_right(starts, mid) - 1
-        for i in range(first, max(first - 64, -1), -1):
-            if spans[i][1] >= mid:
-                name = spans[i][2]
-                break
-        out[name] += (b - a) * 1e-9
+        cuts = [a, *edges[bisect.bisect_right(edges, a):
+                          bisect.bisect_left(edges, b)], b]
+        for lo, hi in zip(cuts, cuts[1:]):
+            mid = (lo + hi) // 2
+            name = "host outside any span"
+            first = bisect.bisect_right(starts, mid) - 1
+            for i in range(first, max(first - 64, -1), -1):
+                if spans[i][1] >= mid:
+                    name = spans[i][2]
+                    break
+            out[name] += (hi - lo) * 1e-9
     return out
 
 
