@@ -16,6 +16,11 @@ given. `--dtype bfloat16` runs every engine in bfloat16
 over float32 weights (`build_usot(dtype=...)`); `--resume` takes a torch
 `.pth` or a flax checkpoint (`.msgpack`, `.ckpt`: any other suffix), as
 the JAX CLI's `load_variables` does.
+
+`--arch OSTrack-384 --engine batch` tracks with OSTrack-384 instead
+(`models/ostrack.py`, `tracker/ostrack_engine.py`), `--batch` videos at
+a time, one lane each; `--resume` then takes OSTrack's checkpoint, its
+weights loaded by key name.
 """
 from __future__ import annotations
 
@@ -37,6 +42,11 @@ from usot_tpu_torch.tracker.engine import BatchScanEngine, ScanEngine
 from usot_tpu_torch.tracker.lockstep import run_refill_group, run_vot_group
 
 
+OSTRACK = "OSTrack-384"
+DEFAULT_RESUME = {"USOT": "var/snapshot/USOT_star.pth",
+                  OSTRACK: "var/snapshot/OSTrack_ep0300.pth.tar"}
+
+
 def str2bool(v: str) -> bool:
     if isinstance(v, bool):
         return v
@@ -49,15 +59,27 @@ def str2bool(v: str) -> bool:
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description="USOT testing (PyTorch)")
-    parser.add_argument("--arch", default="USOT")
-    parser.add_argument("--resume", default="var/snapshot/USOT_star.pth",
-                        help="a PyTorch state dict in the reference's "
-                        "layout (.pth/.model/.tar: a published USOT*.pth; "
-                        "nested under 'state_dict' and 'module.'-style "
-                        "prefixes are accepted) or a flax checkpoint of "
-                        "usot_tpu (any other suffix: .msgpack, .ckpt); "
-                        "loaded strictly. A missing file means random "
-                        "weights with calibrated BN stats")
+    parser.add_argument("--arch", default="USOT",
+                        help="the tracker, and the name of its result "
+                        "directory: USOT (USOT*, any engine) or "
+                        f"{OSTRACK} (OSTrack-384, ECCV 2022: ViT-B/16 "
+                        "one-stream with candidate elimination, "
+                        "--engine batch only, one lane per video, frames "
+                        "read as RGB, OTB-style result files)")
+    parser.add_argument("--resume", default=None,
+                        help="USOT: a PyTorch state dict in the "
+                        "reference's layout (.pth/.model/.tar: a published "
+                        "USOT*.pth; nested under 'state_dict' and "
+                        "'module.'-style prefixes are accepted) or a flax "
+                        "checkpoint of usot_tpu (any other suffix: "
+                        ".msgpack, .ckpt); loaded strictly. "
+                        f"{OSTRACK}: OSTrack's checkpoint "
+                        "(OSTrack_ep0300.pth.tar; its 'net' weights "
+                        "loaded by key name, MAE's unused pos_embed and "
+                        "cls_token ignored). A missing file means random "
+                        "weights (USOT's with calibrated BN stats). "
+                        "Default: var/snapshot/USOT_star.pth, or "
+                        "var/snapshot/OSTrack_ep0300.pth.tar")
     parser.add_argument("--dataset", default="VOT2018")
     parser.add_argument("--dataset_root", default=None)
     # NOT the reference's `type=bool` (scripts/test_usot.py:33), which
@@ -99,7 +121,10 @@ def parse_args(argv=None):
     parser.add_argument("--device", default=None,
                         help="torch device; default the GPU (raises "
                         "without one). 'cpu' runs on the CPU")
-    return parser.parse_args(argv)
+    args = parser.parse_args(argv)
+    if args.resume is None:
+        args.resume = DEFAULT_RESUME.get(args.arch, DEFAULT_RESUME["USOT"])
+    return args
 
 
 def _tracker_path(args) -> str:
@@ -366,6 +391,60 @@ def _init_box(video):
     return np.array([cx, cy]), np.array([w, h])
 
 
+def _write_result(dataset, tracker_path, name, pos, sz):
+    """One video's OTB-style result file: its first ground-truth box,
+    then each tracked frame's [x, y, w, h]."""
+    rects = [np.asarray(dataset[name]["gt"][0], np.float64).ravel()]
+    rects += [np.array([pos[f, 0] - sz[f, 0] / 2, pos[f, 1] - sz[f, 1] / 2,
+                        sz[f, 0], sz[f, 1]], np.float64)
+              for f in range(len(pos))]
+    _write_regions(join(tracker_path, f"{name}.txt"), rects, False)
+
+
+def _track_fixed_groups(dataset, groups, args, make_engine, track,
+                        reader=None, rgb=False):
+    """Fixed padded groups: each group of videos (keyed by canvas bucket
+    (ch, cw, ...)) `--batch` at a time, one lane per video, every lane
+    padded to the group's longest video. make_engine(key, lanes) -> a
+    batch engine; track(engine, inits, frames (B, N, ch, cw, 3),
+    n_valid (B,)) -> (pos, sz, a record's extra entries). rgb: frames
+    turned from BGR to RGB first. Returns one record per group."""
+    tracker_path = _tracker_path(args)
+    records = []
+    for key, names in groups.items():
+        ch, cw = key[:2]
+        for i in range(0, len(names), args.batch):
+            group = names[i:i + args.batch]
+            b = len(group)
+            engine = make_engine(key, b)
+            t0 = time.perf_counter()
+            canvases, hws = _load_group_canvases(dataset, group, ch, cw,
+                                                 reader)
+            if rgb:
+                canvases = [np.ascontiguousarray(c[..., ::-1])
+                            for c in canvases]
+            inits = [(c[0][:h, :w],) + _init_box(dataset[name])
+                     for c, (h, w), name in zip(canvases, hws, group)]
+            n_valid = np.array([len(c) - 1 for c in canvases])
+            frames = np.zeros((b, n_valid.max(), ch, cw, 3), np.uint8)
+            for vi, canvas in enumerate(canvases):
+                frames[vi, :n_valid[vi]] = canvas[1:]
+            pos, sz, rec = track(engine, inits, frames, n_valid)
+            total = 0
+            for vi, name in enumerate(group):
+                n = int(n_valid[vi])
+                _write_result(dataset, tracker_path, name, pos[vi, :n],
+                              sz[vi, :n])
+                total += n + 1
+            dt = time.perf_counter() - t0
+            records.append(dict(videos=b, frames=total, lanes=b, seconds=dt,
+                                fps=total / max(dt, 1e-9), **rec))
+            print("Group of {:d} videos ({:d} frames): {:.1f}s "
+                  "-> {:.1f} fps aggregate".format(
+                      b, total, dt, total / max(dt, 1e-9)))
+    return records
+
+
 def track_dataset_batched(model, runner, dataset, args, reader=None):
     """Lockstep evaluation of a whole benchmark (protocols other than
     VOT): videos grouped by (canvas bucket, instance size), B lanes at a
@@ -374,24 +453,23 @@ def track_dataset_batched(model, runner, dataset, args, reader=None):
     --refill 1 (default): longest-first with lane refill
     (`tracker.lockstep.run_refill_group`), so length-skewed benchmarks do
     not pad every lane to the longest video. --refill 0: fixed padded
-    groups, the path of --roi streaming. Returns one record per group
-    (videos, frames, lanes, seconds, fps, and the refill or ROI counts)."""
+    groups (`_track_fixed_groups`), the path of --roi streaming. Returns
+    one record per group (videos, frames, lanes, seconds, fps, and the
+    refill or ROI counts)."""
     tracker_path = _tracker_path(args)
     groups = _probe_groups(dataset,
                            lambda v: join(tracker_path, f"{v['name']}.txt"),
                            reader)
     engines: dict = {}
-    records = []
 
-    def write_result(name, pos, sz):
-        rects = [np.asarray(dataset[name]["gt"][0], np.float64).ravel()]
-        rects += [np.array([pos[f, 0] - sz[f, 0] / 2,
-                            pos[f, 1] - sz[f, 1] / 2, sz[f, 0], sz[f, 1]],
-                           np.float64) for f in range(len(pos))]
-        _write_regions(join(tracker_path, f"{name}.txt"), rects, False)
+    def make_engine(key, b):
+        ch, cw, instance = key
+        return _make_batch_engine(engines, model, runner, instance, ch, cw,
+                                  b, args)
 
     roi_on = args.roi == "auto" or int(args.roi) != 0
     if args.refill and not roi_on:
+        records = []
         for (ch, cw, instance), names in groups.items():
             t0 = time.perf_counter()
             canvases, hws = _load_group_canvases(dataset, names, ch, cw,
@@ -403,14 +481,13 @@ def track_dataset_batched(model, runner, dataset, args, reader=None):
                                    h=hws[vi][0], w=hws[vi][1],
                                    init_pos=pos0, init_sz=sz0))
             b = min(args.batch, len(names))
-            engine = _make_batch_engine(engines, model, runner, instance,
-                                        ch, cw, b, args)
+            engine = make_engine((ch, cw, instance), b)
             stats = {}
             results = run_refill_group(engine, runner, videos, stats=stats)
             total = 0
             for name in names:
                 pos, sz, _ = results[name]
-                write_result(name, pos, sz)
+                _write_result(dataset, tracker_path, name, pos, sz)
                 total += len(pos) + 1
             dt = time.perf_counter() - t0
             records.append(dict(videos=len(names), frames=total, lanes=b,
@@ -421,55 +498,72 @@ def track_dataset_batched(model, runner, dataset, args, reader=None):
                       len(names), total, b, dt, total / max(dt, 1e-9)))
         return records
 
-    for (ch, cw, instance), names in groups.items():
-        for i in range(0, len(names), args.batch):
-            group = names[i:i + args.batch]
-            b = len(group)
-            engine = _make_batch_engine(engines, model, runner, instance,
-                                        ch, cw, b, args)
-            t0 = time.perf_counter()
-            canvases, hws = _load_group_canvases(dataset, group, ch, cw,
-                                                 reader)
-            vids, n_valid = [], []
-            for vi, name in enumerate(group):
-                vids.append((canvases[vi][0][:hws[vi][0], :hws[vi][1]],)
-                            + _init_box(dataset[name]))
-                n_valid.append(len(canvases[vi]) - 1)
-            max_n = max(len(c) for c in canvases) - 1
-            batch_frames = np.zeros((b, max_n, ch, cw, 3), np.uint8)
-            for vi, canvas in enumerate(canvases):
-                batch_frames[vi, :canvas.shape[0] - 1] = canvas[1:]
+    def track(engine, inits, frames, n_valid):
+        state = engine.init_batch(inits, runner)
+        roi_chunk = args.roi_chunk or None
+        roi = engine.suggest_roi(state, chunk=roi_chunk) \
+            if args.roi == "auto" else int(args.roi)
+        rec = dict(roi=roi)
+        if roi:
+            _, pos, sz, _ = engine.track_batch_roi(
+                state, frames, n_valid, roi=roi, chunk=roi_chunk)
+            rec.update({k: getattr(engine, k) for k in (
+                "roi_accepted", "roi_replays", "roi_chunks",
+                "roi_escalations", "roi_final", "roi_fallback",
+                "roi_bytes_sent", "roi_bytes_full_equiv")})
+        else:
+            _, pos, sz, _ = engine.track_batch(state, frames, n_valid)
+        return pos, sz, rec
 
-            state = engine.init_batch(vids, runner)
-            roi_chunk = args.roi_chunk or None
-            roi = engine.suggest_roi(state, chunk=roi_chunk) \
-                if args.roi == "auto" else int(args.roi)
-            rec = dict(roi=roi)
-            if roi:
-                state, pos, sz, _ = engine.track_batch_roi(
-                    state, batch_frames, np.asarray(n_valid), roi=roi,
-                    chunk=roi_chunk)
-                rec.update({k: getattr(engine, k) for k in (
-                    "roi_accepted", "roi_replays", "roi_chunks",
-                    "roi_escalations",
-                    "roi_final", "roi_fallback", "roi_bytes_sent",
-                    "roi_bytes_full_equiv")})
-            else:
-                state, pos, sz, _ = engine.track_batch(
-                    state, batch_frames, np.asarray(n_valid))
+    return _track_fixed_groups(dataset, groups, args, make_engine, track,
+                               reader)
 
-            total = 0
-            for vi, name in enumerate(group):
-                n = n_valid[vi]
-                write_result(name, pos[vi, :n], sz[vi, :n])
-                total += n + 1
-            dt = time.perf_counter() - t0
-            records.append(dict(videos=b, frames=total, lanes=b, seconds=dt,
-                                fps=total / max(dt, 1e-9), **rec))
-            print("Group of {:d} videos ({:d} frames): {:.1f}s "
-                  "-> {:.1f} fps aggregate".format(
-                      b, total, dt, total / max(dt, 1e-9)))
-    return records
+
+def track_dataset_ostrack(model, dataset, args, reader=None):
+    """OSTrack over a dataset (`--arch OSTrack-384 --engine batch`): the
+    videos grouped by canvas bucket, `--batch` at a time, one lane per
+    video, on an `OSTrackBatchEngine` (`_track_fixed_groups`). Frames are
+    turned from BGR to RGB, as OSTrack reads them. Result files in OTB's
+    layout. Returns one record per group."""
+    from usot_tpu_torch.tracker.ostrack_engine import OSTrackBatchEngine
+
+    tracker_path = _tracker_path(args)
+    groups: dict = {}
+    for name in dataset:
+        if os.path.exists(join(tracker_path, f"{name}.txt")):
+            continue
+        im0 = (reader or read_image)(dataset[name]["image_files"][0])
+        groups.setdefault(_bucket(*im0.shape[:2]), []).append(name)
+
+    def make_engine(key, b):
+        return OSTrackBatchEngine(model, b, chunk=args.chunk,
+                                  device=next(model.parameters()).device)
+
+    def track(engine, inits, frames, n_valid):
+        _, pos, sz, *_ = engine.track_batch(engine.init_batch(inits), frames,
+                                            n_valid)
+        return pos, sz, {}
+
+    return _track_fixed_groups(dataset, groups, args, make_engine, track,
+                               reader, rgb=True)
+
+
+def load_ostrack(args, device):
+    """OSTrack-384 on `device` in `--dtype`: `--resume`'s weights (an
+    OSTrack checkpoint, by key name), or (no such file) seeded random
+    weights with OSTrack's initialisers."""
+    from usot_tpu_torch.models.ostrack import (build_ostrack, init_ostrack,
+                                               load_ostrack_state)
+
+    model = build_ostrack(dtype=torch.bfloat16 if args.dtype == "bfloat16"
+                          else torch.float32)
+    if args.resume and os.path.exists(args.resume):
+        load_ostrack_state(model, torch.load(args.resume, map_location="cpu",
+                                             weights_only=False))
+    else:
+        print(f"warning: checkpoint {args.resume} not found; random init")
+        init_ostrack(model, torch.Generator().manual_seed(0))
+    return model.to(device).eval()
 
 
 def track_dataset_vot_batched(model, runner, dataset, args, reader=None):
@@ -562,6 +656,16 @@ def main(argv=None, reader=None):
     args = parse_args(argv)
     device = resolve_device(args.device)
     f32_numerics()
+    if args.arch == OSTRACK:
+        if args.engine != "batch" or any(k in args.dataset
+                                         for k in ("VOT", "GOT")):
+            raise SystemExit(f"--arch {OSTRACK} runs with --engine batch "
+                             "and writes OTB-style result files (no VOT "
+                             "restarts, no GOT-10k layout)")
+        track_dataset_ostrack(load_ostrack(args, device),
+                              load_dataset(args.dataset, args.dataset_root),
+                              args, reader)
+        return
     model = load_model(args, device)
     runner = ModelRunner(model, device=device)
     dataset = load_dataset(args.dataset, args.dataset_root)

@@ -14,6 +14,11 @@ batch engine's init).
 its matmul formulation (`usot_tpu/core/crop.py:109-255`; JAX picks the
 gather off the TPU, and so do the engines here): float bilinear, one
 window per lane of a (B, H, W, C) frame batch, in one call.
+
+`sample_target_gather` is OSTrack's crop (`sample_target`) for a batch of
+lanes on the device: a square window of side ceil(sqrt(w h) * factor),
+zero outside the image, resized by OpenCV's INTER_LINEAR arithmetic and
+rounded to whole grey levels.
 """
 from __future__ import annotations
 
@@ -305,3 +310,62 @@ def subwindow_matmul(frames, pos_x, pos_y, original_sz, avg_chans,
         out = torch.einsum("biwc,bjw->bijc", rows, rx)
     miss = 1.0 - sy[:, :, None, None] * sx[:, None, :, None]
     return out + avg_chans.to(torch.float32)[:, None, None, :] * miss
+
+
+# ---------------------------------------------------------------------------
+# OSTrack's crop (lib/train/data/processing_utils.py::sample_target) on the
+# device, one window per lane.
+# ---------------------------------------------------------------------------
+
+def sample_target_gather(frames, boxes, factor: float, out_sz: int, im_hw):
+    """OSTrack's `sample_target` for B lanes at once. frames: (B, H, W, C)
+    uint8 on the device, lane b's image at its top-left; boxes: (B, 4)
+    float64 [x, y, w, h]; im_hw: (B, 2) each lane's image [h, w].
+
+    The window: side crop_sz = ceil(sqrt(w h) * factor), top-left
+    round(centre - crop_sz / 2) (half to even, as Python's `round`),
+    in float64 as OSTrack's Python floats. Pixels outside the image read
+    zero, and so do the image's last column and last row (OSTrack pads
+    `max(x2 - W + 1, 0)` on the right and bottom, which drops them
+    whenever the window reaches them). The resize to `out_sz` is
+    INTER_LINEAR as float32 arithmetic: src = (dst + 0.5) * crop_sz /
+    out_sz - 0.5 clamped at 0, two taps, the far one clamped to the
+    window's edge, rounded half up (the repo's host resize, within one
+    grey level of `cv2.resize`). Returns ((B, out_sz, out_sz, C) float32
+    whole grey levels, crop_sz (B,) float64)."""
+    b, h, w, c = frames.shape
+    crop_sz = torch.ceil(torch.sqrt(boxes[:, 2] * boxes[:, 3]) * factor)
+    x1 = torch.round(boxes[:, 0] + 0.5 * boxes[:, 2] - crop_sz * 0.5)
+    y1 = torch.round(boxes[:, 1] + 0.5 * boxes[:, 3] - crop_sz * 0.5)
+    steps = torch.arange(out_sz, dtype=torch.float32, device=frames.device)
+    src = torch.clamp((crop_sz / out_sz).float()[:, None] * (steps + 0.5)
+                      - 0.5, min=0.0)                           # (B, S)
+    last = crop_sz.long()[:, None] - 1
+    i0 = torch.minimum(src.long(), last)
+    i1 = torch.minimum(i0 + 1, last)
+    frac = src - i0.float()
+
+    def taps(origin, valid):
+        """Image coordinates of both taps (B, S), clamped into the
+        frame buffer, and whether each lies in the image's valid part."""
+        a, z = origin.long()[:, None] + i0, origin.long()[:, None] + i1
+        lim = valid.long()[:, None] - 1       # the last row/column reads 0
+        return (a, (a >= 0) & (a < lim)), (z, (z >= 0) & (z < lim))
+
+    (ya, vya), (yb, vyb) = taps(y1, im_hw[:, 0])
+    (xa, vxa), (xb, vxb) = taps(x1, im_hw[:, 1])
+    flat = frames.reshape(b * h * w, c)
+    base = torch.arange(b, device=frames.device)[:, None, None] * (h * w)
+
+    def pixel(yi, vy, xi, vx):
+        idx = base + yi.clamp(0, h - 1)[:, :, None] * w \
+            + xi.clamp(0, w - 1)[:, None, :]
+        val = flat.index_select(0, idx.reshape(-1)).to(torch.float32)
+        ok = (vy[:, :, None] & vx[:, None, :])[..., None]
+        return torch.where(ok, val.reshape(b, out_sz, out_sz, c), 0.0)
+
+    fx = frac[:, None, :, None]
+    fy = frac[:, :, None, None]
+    top = (1 - fx) * pixel(ya, vya, xa, vxa) + fx * pixel(ya, vya, xb, vxb)
+    bot = (1 - fx) * pixel(yb, vyb, xa, vxa) + fx * pixel(yb, vyb, xb, vxb)
+    return _grey((1 - fy) * top + fy * bot), crop_sz

@@ -12,6 +12,8 @@ the host never waits for the card until the chunk's outputs are read
 `ScanEngine` tracks one video; `BatchScanEngine` tracks B videos in
 lockstep. Both run one batched step (`_frame_step_batched`), the single
 video as a batch of one: `vmap` becomes a batch dimension written out.
+The chunk loop is `FrameLoop`'s and the lanes' chunking, staging and
+read-back `LaneEngine`'s, which `tracker/ostrack_engine.py` shares.
 The carry (`EngineState`) keeps the JAX package's fields and layouts: the
 template and the memory frames are carried ENCODED, and the memory ring
 has MAX + 1 slots, the last a scratch slot that takes the writes of
@@ -364,7 +366,31 @@ def _drop(state: EngineState) -> EngineState:
         mem_len=state.mem_len[0])
 
 
-class ScanEngine:
+class FrameLoop:
+    """The chunk loop every engine runs: a subclass gives the batched
+    frame step (`_frame_step_batched(carry, frames, is_valid, *args)` ->
+    (new carry, outputs)), the freeze of invalid lanes (`_freeze(new,
+    old, is_valid)`) and `rounds`, the ordinal its spans carry."""
+
+    @torch.inference_mode()
+    def _chunk(self, carry, frames, valid, *rows):
+        """One chunk on the device: frames (T, B, H, W, 3) uint8, valid
+        (T, B) bool, both on the device; `rows` the per-lane rows the
+        frame step reads, passed on to it. A Python loop over T that makes
+        no host synchronisation. Returns (carry, each of the step's
+        outputs stacked over T, (T, B, ...)) with the outputs on the
+        device."""
+        outs = []
+        for t in range(frames.shape[0]):
+            with span("engine.step", self.rounds):
+                new, out = self._frame_step_batched(
+                    carry, frames[t], valid[t], *rows)
+                carry = self._freeze(new, carry, valid[t])
+            outs.append(out)
+        return carry, tuple(torch.stack(o) for o in zip(*outs))
+
+
+class ScanEngine(FrameLoop):
     """Chunked on-device tracker of one video of a fixed (im_h, im_w).
 
     model: a `USOTNet` with its weights (moved to `device`); device None
@@ -372,6 +398,8 @@ class ScanEngine:
     `subwindow_gather`, JAX's choice off the TPU. fused_head: run the
     heads on folded BN weights (`fold_inference_head`, folded in float32
     and cast once to the compute dtype here)."""
+
+    _freeze = staticmethod(_freeze_invalid)
 
     def __init__(self, model: USOTNet, p: TrackerConfig, im_h: int,
                  im_w: int, max_frames: int = 4096, chunk: int = 64,
@@ -482,23 +510,6 @@ class ScanEngine:
                                 carry.init_enc, mem_enc, mem_conf, mem_idx,
                                 mem_len)
         return new_carry, (new_pos, new_sz, best_score)
-
-    @torch.inference_mode()
-    def _chunk(self, carry: EngineState, frames, valid, avg_b, im_hw_b,
-               origin_b):
-        """One chunk on the device: frames (T, B, H, W, 3) uint8, valid
-        (T, B) bool, both on the device; origin_b (B, 2) as `_search`. A
-        Python loop over T that makes no host synchronisation. Returns
-        (carry, (pos (T, B, 2), sz (T, B, 2), score (T, B))) with the
-        outputs on the device."""
-        outs = []
-        for t in range(frames.shape[0]):
-            with span("engine.step", self.rounds):
-                new, out = self._frame_step_batched(
-                    carry, frames[t], valid[t], avg_b, im_hw_b, origin_b)
-                carry = _freeze_invalid(new, carry, valid[t])
-            outs.append(out)
-        return carry, tuple(torch.stack(o) for o in zip(*outs))
 
     # ---- host API ----
 
@@ -659,7 +670,93 @@ class ScanEngine:
         return state, pos, sz, score
 
 
-class BatchScanEngine(ScanEngine):
+class LaneEngine(FrameLoop):
+    """The lane machinery of a batch engine: B videos in lockstep on one
+    (canvas_h, canvas_w) uint8 canvas, their first frames up in one copy,
+    chunks of frames made on the host (`track_batch`) or staged on the
+    device first (`stage_frames`, `track_staged`), each chunk `FrameLoop`'s
+    loop behind `run_chunk`, and the outputs collated with one copy to the
+    host per call. A subclass gives `batch`, `chunk`, `device`, `rounds`,
+    `run_chunk` and the frame step."""
+
+    def _upload_first(self, ims):
+        """The lanes' first frames as one (B, H, W, 3) uint8 tensor on the
+        device, lane b's image at its top-left and zeros beyond it (H, W:
+        the largest image's), in one host-to-device copy. The staging
+        buffer is pinned on a GPU; PyTorch's pinned-memory cache hands
+        the same block back the next round once the copy out of it has
+        ended, so the copy does not block the host."""
+        shape = (len(ims), max(im.shape[0] for im in ims),
+                 max(im.shape[1] for im in ims), 3)
+        stage = torch.empty(shape, dtype=torch.uint8,
+                            pin_memory=self.device.type == "cuda")
+        for lane, im in zip(stage.numpy(), ims):
+            h, w = im.shape[:2]
+            lane[:h, :w] = im
+            lane[h:] = 0
+            lane[:h, w:] = 0
+        return stage.to(self.device, non_blocking=True)
+
+    def _prep_chunks(self, frames_u8: np.ndarray, n_valid: np.ndarray):
+        """Host-side chunking of (B, N, H, W, 3) into (T, B, H, W, 3)
+        uint8 blocks and (T, B) validity masks. Yields (nb, block,
+        valid) as numpy."""
+        b, n = frames_u8.shape[:2]
+        if b != self.batch:
+            raise ValueError(f"{b} lanes for a batch of {self.batch}")
+        n_valid = np.asarray(n_valid)
+        for i in range(0, n, self.chunk):
+            block = frames_u8[:, i:i + self.chunk]
+            nb = block.shape[1]
+            if nb < self.chunk:
+                pad = np.repeat(block[:, -1:], self.chunk - nb, axis=1)
+                block = np.concatenate([block, pad], axis=1)
+            t_idx = np.arange(self.chunk)[:, None] + i
+            valid = t_idx < n_valid[None, :]
+            yield nb, np.ascontiguousarray(np.swapaxes(block, 0, 1)), valid
+
+    def _upload(self, block, valid):
+        return (torch.from_numpy(block).to(self.device),
+                torch.from_numpy(np.asarray(valid, bool)).to(self.device))
+
+    def _collate(self, pending):
+        """[(nb, outputs (T, B, ...)), ...] -> each output as numpy
+        (B, N, ...), for a USOT engine (pos (B,N,2), sz (B,N,2), score
+        (B,N)): the one copy to the host per call."""
+        with span("engine.collate", self.rounds):
+            return tuple(np.concatenate([o[k][:nb].cpu().numpy()
+                                         for nb, o in pending]).swapaxes(0, 1)
+                         for k in range(len(pending[0][1])))
+
+    def track_batch(self, state, frames_u8: np.ndarray, n_valid: np.ndarray):
+        """frames_u8: (B, N, H, W, 3) canvas frames; n_valid: (B,) true
+        frame counts. Returns (state, pos (B, N, 2), sz (B, N, 2),
+        score (B, N)); entries past a lane's n_valid are padding."""
+        pending = []
+        for nb, block, valid in self._prep_chunks(frames_u8, n_valid):
+            state, outs = self.run_chunk(state, *self._upload(block, valid))
+            pending.append((nb, outs))
+        return (state,) + self._collate(pending)
+
+    def stage_frames(self, frames_u8: np.ndarray, n_valid: np.ndarray):
+        """Upload every chunk of a (B, N, H, W, 3) frame tensor to the
+        device first; returns a list for `track_staged`, so a benchmark
+        times tracking and not the host link."""
+        return [(nb,) + self._upload(block, valid)
+                for nb, block, valid in self._prep_chunks(frames_u8,
+                                                          n_valid)]
+
+    def track_staged(self, state, staged):
+        """Track pre-staged chunks (see stage_frames). Same returns as
+        track_batch."""
+        pending = []
+        for nb, block, valid in staged:
+            state, outs = self.run_chunk(state, block, valid)
+            pending.append((nb, outs))
+        return (state,) + self._collate(pending)
+
+
+class BatchScanEngine(ScanEngine, LaneEngine):
     """Tracks B videos in lockstep on one (canvas_h, canvas_w) uint8
     canvas; each lane's true (h, w) rides in `_im_hw_b` for crop validity
     and clamping. The step is `_frame_step_batched`: the network sees real
@@ -742,24 +839,6 @@ class BatchScanEngine(ScanEngine):
             return self._init_lanes(
                 lanes, [[im.shape[0], im.shape[1]] for im, _, _ in videos],
                 runner)
-
-    def _upload_first(self, ims):
-        """The lanes' first frames as one (B, H, W, 3) uint8 tensor on the
-        device, lane b's image at its top-left and zeros beyond it (H, W:
-        the largest image's), in one host-to-device copy. The staging
-        buffer is pinned on a GPU; PyTorch's pinned-memory cache hands
-        the same block back the next round once the copy out of it has
-        ended, so the copy does not block the host."""
-        shape = (len(ims), max(im.shape[0] for im in ims),
-                 max(im.shape[1] for im in ims), 3)
-        stage = torch.empty(shape, dtype=torch.uint8,
-                            pin_memory=self.device.type == "cuda")
-        for lane, im in zip(stage.numpy(), ims):
-            h, w = im.shape[:2]
-            lane[:h, :w] = im
-            lane[h:] = 0
-            lane[:h, w:] = 0
-        return stage.to(self.device, non_blocking=True)
 
     def _init_device(self, videos) -> dict:
         """The host part of a batched init with its pixel work on the
@@ -846,28 +925,6 @@ class BatchScanEngine(ScanEngine):
             mem_len=torch.ones(b, dtype=torch.int32, device=self.device))
         return state if self._shards is None else self.scatter_state(state)
 
-    def _prep_chunks(self, frames_u8: np.ndarray, n_valid: np.ndarray):
-        """Host-side chunking of (B, N, H, W, 3) into (T, B, H, W, 3)
-        uint8 blocks and (T, B) validity masks. Yields (nb, block,
-        valid) as numpy."""
-        b, n = frames_u8.shape[:2]
-        if b != self.batch:
-            raise ValueError(f"{b} lanes for a batch of {self.batch}")
-        n_valid = np.asarray(n_valid)
-        for i in range(0, n, self.chunk):
-            block = frames_u8[:, i:i + self.chunk]
-            nb = block.shape[1]
-            if nb < self.chunk:
-                pad = np.repeat(block[:, -1:], self.chunk - nb, axis=1)
-                block = np.concatenate([block, pad], axis=1)
-            t_idx = np.arange(self.chunk)[:, None] + i
-            valid = t_idx < n_valid[None, :]
-            yield nb, np.ascontiguousarray(np.swapaxes(block, 0, 1)), valid
-
-    def _upload(self, block, valid):
-        return (torch.from_numpy(block).to(self.device),
-                torch.from_numpy(np.asarray(valid, bool)).to(self.device))
-
     def run_chunk(self, state: EngineState, block, valid,
                   donate: bool = True):
         """One chunk on (T, B, H, W, 3) uint8 frames and (T, B) validity,
@@ -902,43 +959,6 @@ class BatchScanEngine(ScanEngine):
                 mem_enc=tuple(r.clone() for r in state.mem_enc))
         return self._chunk(state, block, valid, self._avg_b, self._im_hw_b,
                            origin_b)
-
-    def _collate(self, pending):
-        """[(nb, (pos (T,B,2), sz, score)), ...] -> numpy (pos (B,N,2),
-        sz (B,N,2), score (B,N)): the one copy to the host per call."""
-        with span("engine.collate", self.rounds):
-            pos, sz, score = (np.concatenate([o[k][:nb].cpu().numpy()
-                                              for nb, o in pending])
-                              for k in range(3))
-        return pos.transpose(1, 0, 2), sz.transpose(1, 0, 2), score.T
-
-    def track_batch(self, state: EngineState, frames_u8: np.ndarray,
-                    n_valid: np.ndarray):
-        """frames_u8: (B, N, H, W, 3) canvas frames; n_valid: (B,) true
-        frame counts. Returns (state, pos (B, N, 2), sz (B, N, 2),
-        score (B, N)); entries past a lane's n_valid are padding."""
-        pending = []
-        for nb, block, valid in self._prep_chunks(frames_u8, n_valid):
-            state, outs = self.run_chunk(state, *self._upload(block, valid))
-            pending.append((nb, outs))
-        return (state,) + self._collate(pending)
-
-    def stage_frames(self, frames_u8: np.ndarray, n_valid: np.ndarray):
-        """Upload every chunk of a (B, N, H, W, 3) frame tensor to the
-        device first; returns a list for `track_staged`, so a benchmark
-        times tracking and not the host link."""
-        return [(nb,) + self._upload(block, valid)
-                for nb, block, valid in self._prep_chunks(frames_u8,
-                                                          n_valid)]
-
-    def track_staged(self, state: EngineState, staged):
-        """Track pre-staged chunks (see stage_frames). Same returns as
-        track_batch."""
-        pending = []
-        for nb, block, valid in staged:
-            state, outs = self.run_chunk(state, block, valid)
-            pending.append((nb, outs))
-        return (state,) + self._collate(pending)
 
     # ---- lane surgery (the VOT restart protocol and lane refill) ----
 
